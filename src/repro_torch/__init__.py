@@ -1,0 +1,16 @@
+"""PyTorch + CUDA port of the topical result cache (``repro``) for NVIDIA
+Hopper.
+
+The JAX package ``repro`` stays the reference; this package imports
+nothing of it (and nothing of JAX).  Layout mirrors ``repro``:
+
+* :mod:`repro_torch.core`, :mod:`repro_torch.freshness` -- copies of the
+  numpy pieces the port needs;
+* :mod:`repro_torch.kernels.cache_ops` -- the cache ops and their two
+  hand-written CUDA kernels (``csrc/cache_ops.cu``), each beside its plain
+  PyTorch version;
+* :mod:`repro_torch.serving` -- the device cache and the broker.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card they raise.
+"""

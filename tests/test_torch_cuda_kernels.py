@@ -1,0 +1,218 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test decides inside itself whether a card is present
+and skips without one, so every worker collects the same tests.  Run on a
+machine with an H100 (the kernels build for sm_90a):
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+Every output -- the packed state, the value table, the per-request probe
+outputs and the write plan -- must be equal (tolerance 0: integer state).
+This file imports no JAX: the machine with the card has none.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.cache_ops import (  # noqa: E402
+    fill_winner_slots,
+    plan_segments,
+    probe_and_commit_op,
+    serve_fused_op,
+)
+from repro_torch.kernels.cache_ops import kernel as pac_kernel  # noqa: E402
+from repro_torch.kernels.cache_ops import ref  # noqa: E402
+from repro_torch.kernels.cache_ops import serve_kernel  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    Broker,
+    BucketSpec,
+    DeviceCacheConfig,
+    FreshnessSpec,
+    STDDeviceCache,
+    splitmix64,
+    state_to_numpy,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _words(rng, shape):
+    return torch.from_numpy(rng.integers(0, 2**32, size=shape, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32))
+
+
+def _case(seed, s, w, v, b, dup_sets=False):
+    """A populated state and a batch with hits, duplicates, pads, static
+    hits, and epochs/floors on both sides of 2**31."""
+    rng = np.random.default_rng(seed)
+    keys_hi = _words(rng, (s, w))
+    keys_lo = _words(rng, (s, w))
+    keys_hi[torch.from_numpy(rng.random((s, w)) < 0.2)] = 0  # empty slots
+    stamp = torch.from_numpy(rng.integers(-1000, 1000, size=(s, w)).astype(np.int32))
+    epoch = _words(rng, (s, w))
+    ks = torch.cat([keys_hi, keys_lo, stamp, epoch], 1).contiguous()
+    value = torch.from_numpy(rng.integers(0, 1 << 30, size=(s, w, v)).astype(np.int32))
+    n_sets = 3 if dup_sets else s
+    set_idx = torch.from_numpy(rng.integers(0, n_sets, size=b).astype(np.int32))
+    way = torch.from_numpy(rng.integers(0, w, size=b))
+    h_hi = _words(rng, b)
+    h_lo = _words(rng, b)
+    resident = torch.from_numpy(rng.random(b) < 0.5)
+    h_hi[resident] = keys_hi[set_idx[resident].long(), way[resident]]
+    h_lo[resident] = keys_lo[set_idx[resident].long(), way[resident]]
+    dup = torch.from_numpy(rng.integers(0, b, size=b // 4))
+    h_hi[-len(dup):], h_lo[-len(dup):] = h_hi[dup], h_lo[dup]
+    set_idx[-len(dup):] = set_idx[dup]
+    h_hi[::17] = -1  # the pad key: all-ones words
+    h_lo[::17] = -1
+    admit = torch.from_numpy(rng.random(b) < 0.8)
+    static_hit = torch.from_numpy(rng.random(b) < 0.1)
+    epochs = _words(rng, b)
+    min_epoch = _words(rng, b)
+    f_set = torch.from_numpy(rng.integers(0, s, size=b).astype(np.int32))
+    f_set[: b // 2] = f_set[b // 2 : 2 * (b // 2)]  # slot collisions
+    f_way = torch.from_numpy(rng.integers(0, w, size=b).astype(np.int32))
+    f_wrote = torch.from_numpy(rng.random(b) < 0.6)
+    f_vals = torch.from_numpy(rng.integers(0, 1 << 30, size=(b, v)).astype(np.int32))
+    return dict(
+        ks=ks, value=value, h_hi=h_hi, h_lo=h_lo, set_idx=set_idx, admit=admit,
+        static_hit=static_hit, clock=torch.tensor(2**31 - 50, dtype=torch.int32),
+        f_set_idx=f_set, f_wrote=f_wrote, f_way=f_way, f_values=f_vals,
+        epochs=epochs, min_epoch=min_epoch,
+    )
+
+
+def _to(case, dev):
+    return {k: t.clone().to(dev) for k, t in case.items()}
+
+
+def _assert_equal(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k].cpu(), b[k].cpu()), k
+
+
+SHAPES = [(64, 4, 3, 200, False), (512, 8, 8, 1024, False), (32, 8, 8, 300, True),
+          (16, 16, 2, 100, True), (8, 2, 1, 50, True)]
+
+
+@pytest.mark.parametrize("s,w,v,b,dup_sets", SHAPES)
+def test_serve_fused_op_on_card_equals_cpu_plain(cuda, s, w, v, b, dup_sets):
+    case = _case(1, s, w, v, b, dup_sets)
+    before = serve_kernel.launches
+    got = serve_fused_op(**_to(case, cuda))
+    torch.cuda.synchronize()
+    assert serve_kernel.launches == before + 1
+    want = serve_fused_op(**_to(case, "cpu"))
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("s,w,v,b,dup_sets", SHAPES)
+def test_probe_and_commit_op_on_card_equals_cpu_plain(cuda, s, w, v, b, dup_sets):
+    case = _case(2, s, w, v, b, dup_sets)
+    for k in ("value", "f_set_idx", "f_wrote", "f_way", "f_values"):
+        del case[k]
+    before = pac_kernel.launches
+    got = probe_and_commit_op(**_to(case, cuda))
+    torch.cuda.synchronize()
+    assert pac_kernel.launches == before + 1
+    want = probe_and_commit_op(**_to(case, "cpu"))
+    _assert_equal(got, want)
+
+
+def _kernel_args(case, dev):
+    c = _to(case, dev)
+    s, w, v = c["value"].shape
+    order, _, leader, seg_len, seg_set = plan_segments(c["set_idx"])
+    f_slot = fill_winner_slots(s * w, w, c["f_set_idx"], c["f_wrote"], c["f_way"])
+    common = (order, leader, seg_len, seg_set, c["h_hi"], c["h_lo"], c["admit"],
+              c["static_hit"], c["epochs"], c["min_epoch"], c["clock"])
+    return c["ks"], c["value"].view(s * w, v), f_slot, c["f_values"], common
+
+
+def test_kernels_equal_plain_versions_on_the_card(cuda):
+    case = _case(3, 256, 8, 8, 1024)
+    ks_k, val_k, f_slot, f_vals, common = _kernel_args(case, cuda)
+    ks_p, val_p = ks_k.clone(), val_k.clone()
+    got = serve_kernel.serve_fused(ks_k, val_k, f_slot, f_vals, *common)
+    want = ref.serve_fused_plain(ks_p, val_p, f_slot, f_vals, *common)
+    torch.cuda.synchronize()
+    assert torch.equal(ks_k, ks_p) and torch.equal(val_k, val_p)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    ks_k, _, _, _, common = _kernel_args(case, cuda)
+    ks_p = ks_k.clone()
+    got = pac_kernel.probe_and_commit(ks_k, *common)
+    want = ref.probe_and_commit_plain(ks_p, *common)
+    torch.cuda.synchronize()
+    assert torch.equal(ks_k, ks_p)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    case = _case(4, 16, 4, 2, 40)
+    ks, val, f_slot, f_vals, common = _kernel_args(case, cuda)
+    with pytest.raises(TypeError):
+        pac_kernel.probe_and_commit(ks.to(torch.int64), *common)
+    with pytest.raises(ValueError):
+        pac_kernel.probe_and_commit(ks.cpu(), *common)
+    with pytest.raises(ValueError):
+        serve_kernel.serve_fused(ks, val[:, :1].contiguous()[:-1], f_slot, f_vals, *common)
+    with pytest.raises(ValueError):  # W > 32 has no kernel instance
+        wide = torch.zeros((2, 4 * 33), dtype=torch.int32, device=cuda)
+        args = list(common)
+        pac_kernel.probe_and_commit(wide, *args)
+        torch.cuda.synchronize()
+
+
+def _backend(q):
+    return np.tile(np.asarray(q)[:, None], (1, 4)).astype(np.int32) * 3 + 1
+
+
+def _broker(device, one_call, fresh):
+    rng = np.random.default_rng(0)
+    topic_of_q = rng.integers(-1, 6, size=4000)
+    cfg = DeviceCacheConfig.build(
+        2048, f_s=0.2, f_t=0.5, topic_distinct={t: 10 + t for t in range(6)},
+        ways=8, value_dim=4,
+    )
+    sq = np.arange(50)
+    cache = STDDeviceCache(cfg, static_hashes=splitmix64(sq),
+                           static_values=_backend(sq), device=device)
+    return Broker(
+        cache, [_backend], lambda q: topic_of_q[q], fused_one_call=one_call,
+        freshness=FreshnessSpec(ttl_s=4.0, stale_policy=fresh) if fresh else None,
+        bucket=BucketSpec(min_size=8), device=device,
+    )
+
+
+@pytest.mark.parametrize("one_call,fresh", [(True, None), (True, "miss"),
+                                            (False, "serve_stale_while_revalidate")])
+def test_broker_on_card_equals_broker_on_cpu(cuda, one_call, fresh):
+    gpu, cpu = _broker("cuda", one_call, fresh), _broker("cpu", one_call, fresh)
+    rng = np.random.default_rng(5)
+    for i, n in enumerate([512, 300, 77, 512, 1, 256, 400] * 2):
+        q = rng.zipf(1.2, size=n) % 4000
+        gpu.advance_time(float(i))
+        cpu.advance_time(float(i))
+        v0, h0 = gpu.serve(q)
+        v1, h1 = cpu.serve(q)
+        assert np.array_equal(v0, v1) and np.array_equal(h0, h1)
+        assert np.array_equal(v0, _backend(q))
+    assert gpu.stats == cpu.stats
+    gpu.flush()
+    cpu.flush()
+    a, b = state_to_numpy(gpu.state), state_to_numpy(cpu.state)
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
+    gpu.close()
+    cpu.close()
