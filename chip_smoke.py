@@ -6,15 +6,17 @@
 Phases (any failure raises and exits non-zero):
 
 1. card: name and power limit, toolkit and torch versions;
-2. build: compiles ``src/repro_torch/csrc/*.cu`` for sm_90a and prints
-   ``ptxas -v``'s registers, shared memory and spills per kernel;
+2. build: compiles ``src/repro_torch/csrc/*.cu`` for sm_90a, one ``nvcc``
+   per source, all at once, and prints ``ptxas -v``'s registers, shared
+   memory and spills per kernel;
 3. stream: the paper-calibrated query log (``SynthConfig``, the port's
    copy of ``repro.querylog.synth``) with its counts scaled by ``SCALE``:
    96 topics, 62% of requests topical, per-topic cores and Zipf(1.05)
    tails, a no-topic pool with 35% fresh singletons, daily topic bursts.
-   The training prefix picks the 2**21 static keys and sizes the topic
-   partitions; the requests after it are served.  The served topical
-   share must match the config's;
+   The training prefix's statistics (``VecStats``, as the serving CLI
+   plans) pick the 2**21 static keys and size the topic partitions; the
+   requests after it are served.  The served topical share must match the
+   config's.  Phases 3-6 use the generator's ground-truth topics;
 4. warm: a 2**22-entry STD cache (f_s = 0.5, f_t = 0.4, W = 8, V = 8)
    behind a ``Broker`` on the card replays the training prefix's last
    ``N_WARM`` batches, so the LRU layers start warm (the paper's
@@ -30,14 +32,33 @@ Phases (any failure raises and exits non-zero):
 6. cpu: the first batches on a ``Broker(device="cpu")`` (the plain
    versions) from the same warm state; hit masks, values and the flushed
    state words must be identical to the card's;
-7. kernels: each kernel against its plain PyTorch version on the card,
-   tolerance 0 (integer state), on the serving path's own batch (the
+7. topics: the paper's topic pipeline on the card, as the serving CLI
+   starts up.  ``generate`` draws the same log with its clicked documents
+   (V = 4096 words); its keys must equal the served stream's.
+   ``run_pipeline`` fits MAP-EM LDA (K = 96) on 20,000 training documents
+   and classifies every train-seen query through the ``topic_score``
+   kernel, one launch per chunk of 8192 documents; the topical request
+   share and the purity against the generator's topics are printed.  A
+   cache planned from the LDA statistics is warmed and serves the same
+   measured batches with the LDA topics (every value equal to the
+   backend's, one serve launch per batch), beside the ground-truth run's
+   hit rates, each split into static, topic and dynamic hits.  On a small log the card's pipeline must equal the CPU's
+   (topic-word distributions within rtol 1e-6, topics identical but for
+   near-ties);
+8. kernels: each cache kernel against its plain PyTorch version on the
+   card, tolerance 0 (integer state), on the serving path's own batch (the
    inputs of the second served batch's launch, captured), on a batch spread
    uniformly over the sets, and on an edge-case batch (deep same-set
    conflicts, duplicates, pad keys, epochs at and above 2**31).  Times each
    kernel on the serving batch with CUDA events (state restored and L2
    flushed before every launch) beside its byte bound and the plain
-   version's time.
+   version's time.  ``topic_score`` against its plain version on the
+   pipeline's first classification chunk (captured) and on edge cases
+   (all-zero rows, K = 1, K = 500, ragged B and V, exact ties): scores
+   within rtol 1e-4, ``top`` exact or within a near-tie, confidences within
+   rtol 1e-4 of the plain softmax of the kernel's scores; timed
+   beside its bound, the plain version and ``torch.matmul`` (the product
+   alone).
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -45,6 +66,7 @@ script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -57,8 +79,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM device-memory rate (NVIDIA data sheet)
+#: H100 SXM device-memory rate and f32 rate outside the tensor cores
+#: (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 SEED = 0
 B = 4096
 WAYS = 8
@@ -79,6 +103,18 @@ TOPICAL_TOL = 0.01
 #: share of served requests the topic and dynamic layers must answer: the
 #: stream must exercise them (a static-lookup-only stream answers ~0.0003)
 MIN_SET_ASSOC_SHARE = 0.005
+#: the topic pipeline's settings: the benchmarks' ``--lda`` rows fit LDA on
+#: 20,000 documents (benchmarks/common.py), 30 EM iterations (the default)
+LDA_SUBSAMPLE = 20_000
+LDA_ITERS = 30
+#: topic_score against its plain version: scores within this relative
+#: tolerance (tests/test_kernels.py's), top exact unless the top two plain
+#: scores lie within it, conf within it of the plain epilogue (softmax) on
+#: the kernel's own scores.  (conf is a softmax of score differences: at
+#: |scores| ~ 3400 two f32 summation orders differ by ~1e-3, and conf by up
+#: to ~1e-3 relative, so it is held to the epilogue, and its difference to
+#: the plain version's is printed.)
+TOPIC_RTOL = 1e-4
 
 
 def check(cond: bool, what: str) -> None:
@@ -97,8 +133,8 @@ def card_line() -> str:
 
 
 def make_stream(seed: int):
-    """``(cfg, train, serve, true_topic)``: the scaled SynthConfig stream
-    split into its training prefix and the served requests after it."""
+    """``(cfg, keys, true_topic, n_train)``: the scaled SynthConfig stream;
+    the requests after its training prefix ``keys[:n_train]`` are served."""
     from repro_torch.querylog import SynthConfig, generate_stream
 
     base = SynthConfig()
@@ -109,8 +145,7 @@ def make_stream(seed: int):
         seed=seed,
     )
     keys, true_topic = generate_stream(cfg)
-    n_serve = (N_BATCHES + N_PROFILE) * B
-    return cfg, keys[:-n_serve], keys[-n_serve:], true_topic
+    return cfg, keys, true_topic, len(keys) - (N_BATCHES + N_PROFILE) * B
 
 
 def backend(q: np.ndarray) -> np.ndarray:
@@ -119,21 +154,20 @@ def backend(q: np.ndarray) -> np.ndarray:
     return ((q[:, None] * 2654435761 + np.arange(VDIM)[None, :] * 40503) % 1000003).astype(np.int32)
 
 
-def plan_cache(train, true_topic):
-    """The cache's layout from the training prefix: topic partitions sized
-    by distinct training queries per topic, the most frequent training
-    queries static.  Returns ``(cfg, static ids, distinct training ids)``."""
+def plan_cache(stats):
+    """The cache's layout from the training prefix's ``VecStats``, as the
+    serving CLI plans it: topic partitions sized by distinct training
+    queries per topic, the most frequent training queries static.  Returns
+    ``(cfg, static ids, distinct training ids)``."""
     from repro_torch.serving import DeviceCacheConfig
 
-    uniq, counts = np.unique(train, return_counts=True)
-    topics = true_topic[uniq]
-    tt, tc = np.unique(topics[topics >= 0], return_counts=True)
     cfg = DeviceCacheConfig.build(
-        ENTRIES, f_s=0.5, f_t=0.4, topic_distinct=dict(zip(tt.tolist(), tc.tolist())),
+        ENTRIES, f_s=0.5, f_t=0.4, topic_distinct=stats.topic_distinct,
         ways=WAYS, value_dim=VDIM,
     )
-    static = uniq[np.argsort(-counts, kind="stable")[: cfg.static_entries]]
-    return cfg, static, len(uniq)
+    seen = stats.train_freq > 0
+    static = np.flatnonzero((stats.freq_rank < cfg.static_entries) & seen)
+    return cfg, static, int(seen.sum())
 
 
 def make_cache(device, cfg, static):
@@ -143,10 +177,10 @@ def make_cache(device, cfg, static):
                           static_values=backend(static), device=device)
 
 
-def make_broker(cache, true_topic, device, **kw):
+def make_broker(cache, key_topic, device, **kw):
     from repro_torch.serving import Broker, BucketSpec
 
-    topic_of = lambda q: true_topic[np.asarray(q, np.int64)]  # noqa: E731
+    topic_of = lambda q: key_topic[np.asarray(q, np.int64)]  # noqa: E731
     return Broker(cache, [backend], topic_of, microbatch=B, bucket=BucketSpec(),
                   device=device, **kw)
 
@@ -164,6 +198,23 @@ def serve_stream(broker, batches):
         hits.append(h)
         vals.append(v)
     return hits, vals, secs
+
+
+def layer_split(batches, hits, key_topic, static, stats) -> str:
+    """The hit rate split by layer: static keys always hit the static
+    layer; any other hit is in the query's topic partition when it carries
+    a topic, else in the dynamic partition.  Checked against the broker's
+    counters."""
+    q, h = np.concatenate(batches), np.concatenate(hits)
+    in_static = np.isin(q, static)
+    topical = key_topic[q] >= 0
+    n_static = int((h & in_static).sum())
+    n_topic = int((h & ~in_static & topical).sum())
+    n_dyn = int((h & ~in_static & ~topical).sum())
+    check(n_static == stats.static_hits and n_topic + n_dyn == stats.topic_hits
+          and len(q) == stats.requests, "the layer split disagrees with the broker's counters")
+    return (f"hit rate {(n_static + n_topic + n_dyn) / len(q):.6f} (static {n_static / len(q):.6f}, "
+            f"topic {n_topic / len(q):.6f}, dynamic {n_dyn / len(q):.6f})")
 
 
 def layer_line(stats) -> str:
@@ -192,14 +243,12 @@ def phase_warm(broker, train):
 
 
 class Capture:
-    """Within the block, clones of the inputs of one kernel-wrapper call on
-    the serving path (the ``index``-th, from 0), taken before the call: the
-    kernels update ``ks`` and ``value`` in place."""
+    """Within the block, clones of the inputs of one call of
+    ``module.attr`` (the ``index``-th, from 0), taken before the call: the
+    cache kernels update ``ks`` and ``value`` in place."""
 
-    def __init__(self, attr: str, index: int):
-        from repro_torch.kernels.cache_ops import ops
-
-        self.ops, self.attr, self.index = ops, attr, index
+    def __init__(self, module, attr: str, index: int):
+        self.ops, self.attr, self.index = module, attr, index
         self.calls, self.args = 0, None
 
     def __enter__(self):
@@ -220,6 +269,7 @@ class Capture:
 
 def phase_serve(device, cache, true_topic, first, warm, serve):
     from repro_torch.kernels.cache_ops import kernel as pac
+    from repro_torch.kernels.cache_ops import ops
     from repro_torch.kernels.cache_ops import serve_kernel as srv
     from repro_torch.serving import state_from_numpy, state_to_numpy
 
@@ -238,7 +288,7 @@ def phase_serve(device, cache, true_topic, first, warm, serve):
         srv.launches = 0
         pac.launches = 0
         torch.cuda.synchronize()
-        with Capture(wrapper, 1) as cap:
+        with Capture(ops, wrapper, 1) as cap:
             hits, vals, secs = serve_stream(broker, batches[:N_CPU_BATCHES])
         snap = None
         if one_call:  # the card's state for the CPU comparison
@@ -255,7 +305,7 @@ def phase_serve(device, cache, true_topic, first, warm, serve):
               f"dispatches {counts}, kernel launches {launches}")
         out[name] = dict(hits=hits + h2, vals=vals + v2, launches=launches, counts=counts,
                          snap=snap, broker=broker, batches=batches, secs=secs,
-                         stats=broker.stats, args=cap.args)
+                         stats=dataclasses.replace(broker.stats), args=cap.args)
     one, legacy = out["one_call"], out["legacy"]
     nb = len(batches)
     check(one["counts"].get("one_call") == nb, "one one_call dispatch per batch")
@@ -339,7 +389,142 @@ def phase_cpu(cfg, static, true_topic, warm, served):
           f"to the card (hit masks, values, flushed state words), {time.perf_counter() - t0:.3f} s")
 
 
-# -- phase 7: kernels against their plain versions -----------------------------
+# -- phase 7: the topic pipeline --------------------------------------------------
+
+
+def train_frac_for(n: int, n_train: int) -> float:
+    """The ``train_frac`` whose ``int(n * frac)`` split is ``n_train``."""
+    frac = n_train / n
+    while int(n * frac) < n_train:
+        frac = float(np.nextafter(frac, 1.0))
+    while int(n * frac) > n_train:
+        frac = float(np.nextafter(frac, 0.0))
+    check(int(n * frac) == n_train, "a train_frac that splits at the served stream")
+    return frac
+
+
+def purity(key_topic, true_topic, k_lda: int, k_true: int):
+    """Per LDA topic, the share of its classified queries whose true topic
+    is the topic's majority; returns ``(overall share, per-topic shares)``."""
+    sel = key_topic >= 0
+    pair = np.bincount(key_topic[sel] * k_true + np.maximum(true_topic[sel], 0),
+                       minlength=k_lda * k_true).reshape(k_lda, k_true)
+    size = pair.sum(1)
+    per = pair.max(1)[size > 0] / size[size > 0]
+    return float(pair.max(1).sum() / max(size.sum(), 1)), per
+
+
+def small_pipeline_check(device) -> None:
+    """On a small log the card's pipeline (EM with atomics, the kernel)
+    must equal the CPU's (the plain versions): phi within rtol 1e-6, and
+    the same topic for every query but those whose two best CPU scores
+    lie within ``TOPIC_RTOL``."""
+    from repro_torch.querylog import SynthConfig, generate
+    from repro_torch.topics import run_pipeline
+
+    cfg = SynthConfig(n_requests=200_000, n_topical_queries=15_000, n_notopic_queries=6_000,
+                      n_topics=32, vocab_size=1024, n_buckets=256, seed=SEED + 1)
+    runs = {}
+    for dev in (device, "cpu"):
+        log = generate(cfg, device=dev)
+        runs[str(dev)] = run_pipeline(log, lda_iters=LDA_ITERS, lda_subsample=3_000,
+                                      seed=SEED, device=dev)
+    gpu, cpu = runs[str(device)], runs["cpu"]
+    phi_g, phi_c = gpu.model.phi.cpu().double(), cpu.model.phi.double()
+    rel = float(((phi_g - phi_c).abs() / phi_c.abs()).max())
+    kt_g, kt_c = gpu.assignment.key_topic, cpu.assignment.key_topic
+    differ = np.flatnonzero(kt_g != kt_c)
+    print(f"topics/small: card vs cpu on a {cfg.n_requests}-request log (K={cfg.n_topics}, "
+          f"V={cfg.vocab_size}): phi max rel diff {rel:.3e}, key_topic differs on "
+          f"{len(differ)}/{len(kt_c)} queries, topical fraction "
+          f"{gpu.topical_request_fraction:.6f} / {cpu.topical_request_fraction:.6f}")
+    check(rel <= 1e-6, "the card's EM phi is not within rtol 1e-6 of the CPU's")
+    if len(differ):  # allowed only where the CPU's top two scores nearly tie
+        from repro_torch.topics import BagOfWords, infer_scores
+
+        check(bool(np.all((kt_g[differ] >= 0) & (kt_c[differ] >= 0))),
+              "the card and the CPU classify different queries")
+        bow = BagOfWords.from_docs([log.doc(q) for q in differ], cfg.vocab_size, device="cpu")
+        sc = infer_scores(cpu.model, bow).numpy()
+        i = np.arange(len(differ))
+        gap = np.abs(sc[i, kt_g[differ]] - sc[i, kt_c[differ]])
+        check(bool(np.all(gap <= TOPIC_RTOL * np.abs(sc[i, kt_c[differ]]))),
+              "the card's topics differ from the CPU's beyond near-ties")
+
+
+def phase_topics(device, cfg, keys, true_topic, n_train, served, static_truth):
+    """The serving CLI's start-up path on the card: log -> LDA -> topics ->
+    plan -> serve with the LDA topics."""
+    from repro_torch.kernels.cache_ops import serve_kernel as srv
+    from repro_torch.kernels.topic_score import kernel as tsk
+    from repro_torch.kernels.topic_score import ops as ts_ops
+    from repro_torch.querylog import generate
+    from repro_torch.topics import lda, run_pipeline
+
+    t0 = time.perf_counter()
+    log = generate(cfg, device=device)
+    gen_s = time.perf_counter() - t0
+    check(np.array_equal(log.keys, keys), "generate's keys differ from the served stream's")
+    check(np.array_equal(log.true_topic, true_topic), "generate's topics differ from the stream's")
+    print(f"topics/generate: {log.n_docs} clicked documents, {len(log.doc_tokens)} tokens, "
+          f"V={cfg.vocab_size}; keys identical to the served stream's; {gen_s:.3f} s")
+
+    tsk.launches = 0
+    with Capture(ts_ops, "topic_score_op", 0) as cap:
+        pipe = run_pipeline(log, train_frac=train_frac_for(len(keys), n_train),
+                            lda_iters=LDA_ITERS, lda_subsample=LDA_SUBSAMPLE, seed=SEED,
+                            device=device)
+    launches = tsk.launches
+    check(pipe.log.n_train == n_train, "the pipeline splits at the served stream")
+    kt = pipe.assignment.key_topic
+    classified = pipe.stats.train_freq[log.doc_qid] > 0
+    n_cls = int(classified.sum())
+    check(launches == -(-n_cls // lda.CHUNK_ROWS),
+          f"one topic_score launch per chunk of {lda.CHUNK_ROWS} classified documents "
+          f"({launches} launches for {n_cls})")
+    check(np.array_equal(np.flatnonzero(kt >= 0), log.doc_qid[classified]),
+          "exactly the train-seen clicked queries carry a topic")
+    check(kt.max() < cfg.n_topics, "topics lie in [0, K)")
+    sec = pipe.seconds
+    share, per = purity(kt, true_topic, cfg.n_topics, cfg.n_topics)
+    print(f"topics/pipeline: EM on {LDA_SUBSAMPLE} documents x {LDA_ITERS} iterations (K="
+          f"{cfg.n_topics}, V={cfg.vocab_size}) {sec['lda']:.3f} s; classified {n_cls} queries "
+          f"in {sec['classify']:.3f} s ({n_cls / sec['classify']:.1f} queries/s, "
+          f"{launches} topic_score launches); statistics {sec['stats']:.3f} s; topical "
+          f"request fraction {pipe.topical_request_fraction:.6f} (paper: 0.65 AOL, 0.58 MSN; "
+          f"ground truth {float(np.mean(true_topic[keys[n_train:]] >= 0)):.6f}); purity "
+          f"{share:.6f} of classified queries (per LDA topic: min {per.min():.6f}, median "
+          f"{np.median(per):.6f}, {int((per >= 0.9).sum())}/{len(per)} topics >= 0.9)")
+
+    t0 = time.perf_counter()
+    ccfg, static, n_distinct = plan_cache(pipe.stats)
+    cache = make_cache(device, ccfg, static)
+    broker = make_broker(cache, kt, device)
+    print(f"topics/cache: {cache.n_sets} sets x {WAYS} ways + {len(static)} static keys, "
+          f"{cache.k} topic partitions from the LDA statistics; planned in "
+          f"{time.perf_counter() - t0:.3f} s")
+    phase_warm(broker, keys[:n_train])
+    batches = served["one_call"]["batches"]
+    broker.warmup([B])
+    broker.dispatch_counts.clear()
+    srv.launches = 0
+    torch.cuda.synchronize()
+    hits, _, secs = serve_stream(broker, batches)
+    n_launch, counts = srv.launches, dict(broker.dispatch_counts)
+    check(counts.get("one_call") == len(batches), "one one_call dispatch per LDA-served batch")
+    check(n_launch == len(batches), "one serve_fused launch per LDA-served batch")
+    one = served["one_call"]
+    truth = layer_split(batches, one["hits"], true_topic, static_truth, one["stats"])
+    print(f"topics/serve: {len(batches)} batches x {B} with the LDA topics, "
+          f"{layer_split(batches, hits, kt, static, broker.stats)}; ground-truth topics: "
+          f"{truth}; every value equal to the backend's; serve_fused launches {n_launch}; "
+          f"ms/batch median {np.median(secs) * 1e3:.3f} (host clock)")
+    broker.close()
+    small_pipeline_check(device)
+    return dict(launches=launches, args=cap.args, n_classified=n_cls)
+
+
+# -- phase 8: kernels against their plain versions -----------------------------
 
 
 def _words(rng, shape):
@@ -497,7 +682,80 @@ def _max_err(a, b) -> int:
     return err
 
 
-def phase_kernels(device, served):
+def topic_score_cases(device, real):
+    """``(label, counts, log_phi_t)``: the pipeline's captured chunk, then
+    edge cases -- all-zero rows, K = 1, K = 500, B and V off every tile,
+    and exact ties (two identical topic columns)."""
+    rng = np.random.default_rng(SEED + 7)
+    cases = [("real", *real)]
+    for b, v, k in ((1000, 4097, 96), (37, 129, 1), (301, 1000, 500)):
+        counts = rng.poisson(0.02, size=(b, v)).astype(np.float32)
+        counts[:: 50] = 0  # all-zero rows
+        lpt = np.ascontiguousarray(
+            np.log(rng.dirichlet(np.full(v, 0.1), size=k).T + 1e-12).astype(np.float32))
+        if k > 1:  # two identical topics, the likeliest for every word: every row ties
+            lpt[:, 3 % k] = lpt[:, min(7, k - 1)] = lpt.max(axis=1)
+        cases.append((f"edge B={b} V={v} K={k}", torch.from_numpy(counts).to(device),
+                      torch.from_numpy(lpt).to(device)))
+    return cases
+
+
+def check_topic_score(device, topics, flush):
+    """topic_score against its plain version on the card; times it on the
+    pipeline's own chunk."""
+    from repro_torch.kernels.topic_score import kernel as tsk
+    from repro_torch.kernels.topic_score.ref import topic_score_plain
+
+    check(topics["args"] is not None, "captured the pipeline's first topic_score call")
+    row = dict(max_abs_err=0.0)
+    for label, counts, lpt in topic_score_cases(device, topics["args"]):
+        got = tsk.topic_score(counts, lpt)
+        want = topic_score_plain(counts, lpt)
+        torch.cuda.synchronize()
+        s_k, t_k, c_k = got
+        s_p, t_p, c_p = want
+        check(torch.allclose(s_k, s_p, rtol=TOPIC_RTOL, atol=0.0),
+              f"topic_score scores != plain on the {label} batch")
+        own = torch.softmax(s_k, dim=-1).gather(1, t_k.long()[:, None])[:, 0]
+        check(torch.allclose(c_k, own, rtol=TOPIC_RTOL, atol=0.0),
+              f"topic_score conf != the plain epilogue on its scores on the {label} batch")
+        conf_rel = float(((c_k - c_p).abs() / c_p).max())
+        differ = torch.nonzero(t_k != t_p)[:, 0]
+        s_at_k = s_p[differ, t_k[differ].long()]
+        s_at_p = s_p[differ, t_p[differ].long()]
+        check(bool(((s_at_k - s_at_p).abs() <= TOPIC_RTOL * s_at_p.abs()).all()),
+              f"topic_score top != plain beyond near-ties on the {label} batch")
+        err = max(float((s_k - s_p).abs().max()), float((c_k - c_p).abs().max()))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        b, k = s_p.shape
+        top2 = s_k.topk(min(2, k), dim=1).values
+        ties = int((top2[:, 0] == top2[:, -1]).sum()) if k > 1 else 0
+        print(f"kernels/topic_score/{label}: within rtol {TOPIC_RTOL} of plain (B={b} "
+              f"V={counts.shape[1]} K={k}, zero rows {int((counts.sum(1) == 0).sum())}, rows "
+              f"with an exact tie for the top {ties}, top differs on {len(differ)} near-tied "
+              f"rows, max abs err {err:.3e}, conf max rel diff to plain {conf_rel:.3e})")
+    counts, lpt = topics["args"]
+    b, v = counts.shape
+    k = lpt.shape[1]
+    n = 50
+    noop = lambda: None  # noqa: E731
+    flops = 2.0 * b * v * k
+    nbytes = 4.0 * (b * v + v * k + b * k + 2 * b)
+    row.update(
+        ms=time_device(lambda: tsk.topic_score(counts, lpt), n, flush, noop),
+        plain_ms=time_host(lambda: topic_score_plain(counts, lpt), 20, flush, noop),
+        library_ms=time_device(lambda: torch.matmul(counts, lpt), n, flush, noop),
+        bound_ms=max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by="operations" if flops / F32_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes",
+    )
+    print(f"kernels/topic_score/real: device {row['ms']:.6f} ms/launch (L2 flushed), "
+          f"{flops / (row['ms'] * 1e-3) / 1e9:.1f} GFLOP/s; plain {row['plain_ms']:.6f} ms; torch.matmul "
+          f"(the product alone, no TF32) {row['library_ms']:.6f} ms; bound {row['bound_ms']:.6f} "
+          f"ms by {row['bound_by']} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+    return row
+
+
+def phase_kernels(device, served, topics):
     from repro_torch.kernels.cache_ops import kernel as pac
     from repro_torch.kernels.cache_ops import ref
     from repro_torch.kernels.cache_ops import serve_kernel as srv
@@ -569,11 +827,12 @@ def phase_kernels(device, served):
             bound_ms=kernel_bytes(pks, pcommon) / HBM_BYTES_PER_S * 1e3,
             wrapper_ms=time_host(run_pac, n, flush, restore_pac),
         )
-    del flush
     for name, r in rows.items():
         print(f"kernels/{name}/stream: device {r['ms']:.6f} ms/launch (L2 flushed), with the "
               f"wrapper's host work {r['wrapper_ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
               f"byte bound {r['bound_ms']:.6f} ms")
+    rows["topic_score"] = check_topic_score(device, topics, flush)
+    del flush
     return rows
 
 
@@ -582,13 +841,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs the port on the card",
               file=sys.stderr)
         return 1
+    from repro_torch.core.fast import VecLog, VecStats
     from repro_torch.kernels import _build
 
+    # the f32 products stay IEEE f32: the kernel's yardstick too
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     device = torch.device("cuda")
     print(f"card: {card}; torch {torch.__version__} (CUDA {torch.version.cuda}), "
           f"python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} for sm_90a in {time.perf_counter() - t0:.3f} s")
     for name, (_, report) in libs.items():
@@ -599,7 +862,8 @@ def main() -> int:
                 print(f"ptxas/{name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    cfg, train, serve, true_topic = make_stream(SEED)
+    cfg, keys, true_topic, n_train = make_stream(SEED)
+    train, serve = keys[:n_train], keys[n_train:]
     share = float(np.mean(true_topic[serve] >= 0))
     print(f"stream: SynthConfig x{SCALE} (seed {SEED}): {len(train)} training + {len(serve)} "
           f"served requests over {len(true_topic)} query ids, served topical share "
@@ -608,18 +872,26 @@ def main() -> int:
     check(abs(share - cfg.topical_fraction) <= TOPICAL_TOL,
           f"served topical share {share:.6f} is not the config's {cfg.topical_fraction}")
     t0 = time.perf_counter()
-    ccfg, static, n_distinct = plan_cache(train, true_topic)
+    ccfg, static, n_distinct = plan_cache(VecStats.from_log(VecLog(keys, n_train, true_topic)))
     cache = make_cache(device, ccfg, static)
     print(f"cache: {ccfg.total_entries} entries = {cache.n_sets} sets x {WAYS} ways + "
           f"{len(static)} static keys, {cache.k} topic partitions; "
           f"{ccfg.total_entries / n_distinct:.6f} of the training prefix's {n_distinct} "
           f"distinct queries; planned in {time.perf_counter() - t0:.3f} s")
 
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase/{name}: {time.perf_counter() - t:.3f} s")
+        return out
+
     first = make_broker(cache, true_topic, device)
-    warm = phase_warm(first, train)
-    served = phase_serve(device, cache, true_topic, first, warm, serve)
-    phase_cpu(ccfg, static, true_topic, warm, served)
-    rows = phase_kernels(device, served)
+    warm = phase("warm", phase_warm, first, train)
+    served = phase("serve", phase_serve, device, cache, true_topic, first, warm, serve)
+    phase("cpu", phase_cpu, ccfg, static, true_topic, warm, served)
+    topics = phase("topics", phase_topics, device, cfg, keys, true_topic, n_train, served,
+                   static)
+    rows = phase("kernels", phase_kernels, device, served, topics)
 
     kernels = []
     # each kernel's launches come from the run of the path that uses it
@@ -634,6 +906,14 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=None,
         ))
+    r = rows["topic_score"]
+    kernels.append(dict(
+        name="topic_score", route="cuda", source="src/repro_torch/csrc/topic_score.cu",
+        replaces="src/repro/kernels/topic_score/kernel.py:51", launches=topics["launches"],
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+    ))
+    print(f"run: {time.perf_counter() - t_run:.3f} s after the card check")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,17 @@ The JAX package ``repro`` stays the reference; this package imports
 nothing of it (and nothing of JAX).  Layout mirrors ``repro``:
 
 * :mod:`repro_torch.core`, :mod:`repro_torch.freshness` -- copies of the
-  numpy pieces the port needs;
+  numpy pieces the port needs (the log's training statistics
+  ``VecStats`` among them);
+* :mod:`repro_torch.querylog` -- the synthetic query log with its clicked
+  documents;
+* :mod:`repro_torch.topics` -- the paper's topic pipeline: MAP-EM LDA and
+  the query-topic assignment that plans the cache's topic layer;
 * :mod:`repro_torch.kernels.cache_ops` -- the cache ops and their two
   hand-written CUDA kernels (``csrc/cache_ops.cu``), each beside its plain
+  PyTorch version;
+* :mod:`repro_torch.kernels.topic_score` -- LDA topic inference and its
+  hand-written CUDA kernel (``csrc/topic_score.cu``), beside its plain
   PyTorch version;
 * :mod:`repro_torch.serving` -- the device cache and the broker.
 

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels (``repro_torch/csrc/*.cu``).
 
 Each source compiles at first use into its own shared library with a plain
-C interface, loaded through ``ctypes``::
+C interface, loaded through ``ctypes``; the sources compile in parallel::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
@@ -54,30 +54,35 @@ def _target(src: Path) -> Path:
 
 @functools.lru_cache(maxsize=None)
 def build_all() -> Dict[str, Tuple[Path, str]]:
-    """Compile every ``csrc/*.cu`` whose library is missing.
+    """Compile every ``csrc/*.cu`` whose library is missing, one ``nvcc``
+    per source, all started together.
 
     Returns ``{source stem: (library path, ptxas report)}``; the report is
     empty for a library that was already built.  Raises ``RuntimeError``
     with the compiler's output when a build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    libs = {}
+    libs, jobs = {}, {}
     for src in sorted(CSRC.glob("*.cu")):
-        lib, report = _target(src), ""
+        lib = _target(src)
+        libs[src.stem] = (lib, "")
         if not lib.is_file():
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
+            proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=False,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"CUDA kernel build failed: {src.name} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}"
-                )
-            os.replace(tmp, lib)  # atomic: concurrent builds agree
-            report = proc.stdout
-        libs[src.stem] = (lib, report)
+            jobs[src] = (proc, tmp, lib)
+    failed = []
+    for src, (proc, tmp, lib) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, lib)  # atomic: concurrent builds agree
+        libs[src.stem] = (lib, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return libs
 
 

@@ -1,9 +1,8 @@
-"""Synthetic query stream, calibrated to the paper's measurements.
+"""Synthetic query log, calibrated to the paper's measurements.
 
-A copy of the request-stream part of ``repro.querylog.synth.generate``:
-the same ``SynthConfig`` and the same draws in the same order, so for one
-config the keys and ground-truth topics are identical to the reference's.
-What the stream carries:
+A copy of ``repro.querylog.synth.generate``: the same ``SynthConfig`` and
+the same draws in the same order, so for one config every array is
+identical to the reference's.  What the log carries:
 
 * power-law query popularity (paper Fig. 4);
 * k latent topics with Zipf topic popularity; 62% of requests topical;
@@ -11,19 +10,28 @@ What the stream carries:
   weekly cycles with topic-specific phases (paper Sec. 1);
 * inside a topic, a stable flat core of recurring queries plus a
   high-churn Zipf tail;
-* a no-topic Zipf pool and a large mass of fresh singletons.
+* a no-topic Zipf pool and a large mass of fresh singletons;
+* per-query surface features (term and character counts) for the
+  admission policy;
+* a click model: clicked-document text per requested topical query, drawn
+  from topic-peaked word distributions, so the LDA pipeline
+  (:mod:`repro_torch.topics`) can discover the topics the cache uses.
 
-The reference goes on to draw per-query surface features (for the
-admission policy) and clicked-document text (for LDA); those draws come
-after the stream's and are not copied: the port has no admission policy
-or topic pipeline yet.
+:func:`generate_stream` stops after the request stream.  :func:`generate`
+goes on to the features and the documents.  The documents are held in CSR
+form (``doc_qid`` ascending, ``doc_offsets``, ``doc_tokens``) rather than
+the reference's dict of one array per query: the same data, laid out for
+a log of millions of documents.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+from ..core.device import resolve_device
 
 #: sentinel topic id of an unclassified query
 NO_TOPIC = -1
@@ -66,14 +74,78 @@ class SynthConfig:
     zipf_core: float = 0.3
     #: daily core churn: fraction of core slots rotated into the tail
     core_churn: float = 0.0
-    #: vocabulary for clicked-document text (unused by the stream)
+    #: vocabulary for clicked-document text
     vocab_size: int = 4096
     doc_len: Tuple[int, int] = (30, 80)
-    #: per-topic word-distribution concentration (unused by the stream)
+    #: per-topic word-distribution concentration (small = peaked topics)
     topic_dirichlet: float = 0.04
-    #: background-word mixture weight inside a document (unused by the stream)
+    #: background-word mixture weight inside a document
     background_mix: float = 0.2
     seed: int = 0
+
+
+@dataclass
+class SynthLog:
+    """A generated log.  Query ids are dense in ``[0, n_queries)``.
+
+    The clicked documents are in CSR form: document ``i`` belongs to query
+    ``doc_qid[i]`` (ascending, one document per clicked query) and is
+    ``doc_tokens[doc_offsets[i]:doc_offsets[i + 1]]``.
+    """
+
+    keys: np.ndarray  # (n,) int64 request stream
+    timestamps: np.ndarray  # (n,) float64 days since epoch, ascending
+    true_topic: np.ndarray  # (n_queries,) ground-truth topic or NO_TOPIC
+    n_terms: np.ndarray  # (n_queries,) query length in words
+    n_chars: np.ndarray  # (n_queries,) query length in characters
+    doc_qid: np.ndarray  # (n_docs,) int64 clicked query ids, ascending
+    doc_offsets: np.ndarray  # (n_docs + 1,) int64
+    doc_tokens: np.ndarray  # (total tokens,) int32 word ids
+    #: click count per query id (voting weight)
+    clicks: np.ndarray  # (n_queries,) int64
+    #: the generator's topic-word distributions (diagnostics only)
+    phi: np.ndarray  # (n_topics, vocab_size) float64
+    config: Optional[SynthConfig] = None
+
+    @property
+    def n_queries(self) -> int:
+        return len(self.true_topic)
+
+    @property
+    def n_docs(self) -> int:
+        return len(self.doc_qid)
+
+    def split(self, train_frac: float) -> int:
+        """Index splitting the stream into train/test by time order."""
+        return int(len(self.keys) * train_frac)
+
+    def doc(self, qid: int) -> np.ndarray:
+        """The clicked-document tokens of query ``qid`` (``KeyError`` if it
+        has none): the reference's ``docs[qid]``."""
+        i = int(np.searchsorted(self.doc_qid, qid))
+        if i == len(self.doc_qid) or self.doc_qid[i] != qid:
+            raise KeyError(qid)
+        return self.doc_tokens[self.doc_offsets[i] : self.doc_offsets[i + 1]]
+
+    def docs_csr(self, rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """``(offsets, tokens)`` of the documents at positions ``rows``, in
+        that order."""
+        off, tok = csr_rows(torch.from_numpy(self.doc_offsets), torch.from_numpy(self.doc_tokens),
+                            torch.as_tensor(np.asarray(rows, np.int64)))
+        return off.numpy(), tok.numpy()
+
+
+def csr_rows(offsets: torch.Tensor, tokens: torch.Tensor, rows: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CSR ``(offsets, tokens)`` of the rows ``rows`` of a CSR, in that
+    order, on the inputs' device (int64 offsets and rows)."""
+    lens = offsets[rows + 1] - offsets[rows]
+    out = torch.zeros(len(rows) + 1, dtype=torch.int64, device=offsets.device)
+    torch.cumsum(lens, 0, out=out[1:])
+    n = int(out[-1])
+    pos = torch.repeat_interleave(offsets[rows] - out[:-1], lens, output_size=n)
+    pos += torch.arange(n, device=offsets.device)
+    return out, tokens[pos]
 
 
 def _zipf_pmf(n: int, s: float) -> np.ndarray:
@@ -95,7 +167,11 @@ def generate_stream(cfg: SynthConfig) -> Tuple[np.ndarray, np.ndarray]:
     ``keys`` is the ``(n_requests,)`` int64 stream of dense query ids in
     time order; ``true_topic`` maps each id to its topic or ``NO_TOPIC``.
     """
-    rng = np.random.default_rng(cfg.seed)
+    return _draw_stream(np.random.default_rng(cfg.seed), cfg)
+
+
+def _draw_stream(rng: np.random.Generator, cfg: SynthConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """The stream's draws from ``rng`` (``generate``'s first part)."""
     k = cfg.n_topics
     n = cfg.n_requests
 
@@ -193,3 +269,80 @@ def generate_stream(cfg: SynthConfig) -> Tuple[np.ndarray, np.ndarray]:
     for t in range(k):
         true_topic[topic_offset[t] : topic_offset[t + 1]] = t
     return keys, true_topic
+
+
+def generate(cfg: SynthConfig, device="cuda") -> SynthLog:
+    """The whole log of ``cfg``: the stream, then the surface features, the
+    topic-word distributions, the clicked documents and the click counts,
+    drawn as the reference draws them.
+
+    Every draw is numpy's, from one ``Generator`` seeded as the
+    reference's.  The inverse-CDF lookups of the document words (~55 per
+    document, 301M at 100x the default config) run on ``device`` with
+    ``torch.searchsorted`` in float64: exact comparisons, so the words are
+    the reference's bit for bit, without numpy's one-word-at-a-time binary
+    search, the slowest step of the reference's generator at that size.
+    """
+    dev = resolve_device(device)
+    rng = np.random.default_rng(cfg.seed)
+    keys, true_topic = _draw_stream(rng, cfg)
+    k = cfg.n_topics
+    n_queries = len(true_topic)
+
+    # ----- query surface features (admission policy) -----------------------
+    # popular queries are short; rare/singleton queries long (paper Sec. 5)
+    freq = np.bincount(keys, minlength=n_queries)
+    log_rarity = np.log1p(1.0 / np.maximum(freq, 1))
+    n_terms = 1 + rng.poisson(0.25 + 0.8 * log_rarity)
+    n_chars = (n_terms * (3 + rng.poisson(1.5, size=n_queries)) + 2).astype(np.int64)
+
+    # ----- clicked-document text (LDA training substrate) ------------------
+    v = cfg.vocab_size
+    phi = rng.dirichlet(np.full(v, cfg.topic_dirichlet), size=k)  # (k, v)
+    background = _zipf_pmf(v, 1.0)
+    rng.shuffle(background)
+    # only requested topical queries get documents (a click needs a
+    # request), and 8% of them have no click at all
+    requested = np.flatnonzero(freq > 0)
+    topical_req = requested[true_topic[requested] != NO_TOPIC]
+    has_click = rng.random(len(topical_req)) > 0.08
+    clicked = topical_req[has_click]
+    lens = rng.integers(cfg.doc_len[0], cfg.doc_len[1], size=len(clicked))
+    phi_cdf = np.cumsum(phi, axis=1)
+    bg_cdf = np.cumsum(background)
+    starts = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    total = int(starts[-1])
+    words = torch.empty(total, dtype=torch.int32, device=dev)
+    u = torch.from_numpy(rng.random(total)).to(dev)
+    cdf = torch.from_numpy(phi_cdf).to(dev)
+    # The reference draws each topic's words through a boolean mask over all
+    # tokens.  ``clicked`` ascends and each topic owns one contiguous id
+    # range, in topic order, so a topic's tokens are one contiguous run: a
+    # slice gives the same words from the same draws.
+    doc_topic = true_topic[clicked]
+    tok_bounds = starts[np.searchsorted(doc_topic, np.arange(k + 1))]
+    for t in range(k):
+        lo, hi = int(tok_bounds[t]), int(tok_bounds[t + 1])
+        if hi > lo:
+            torch.searchsorted(cdf[t], u[lo:hi], right=True, out_int32=True, out=words[lo:hi])
+    del u
+    mix = torch.from_numpy(rng.random(total) < cfg.background_mix).to(dev)
+    u_bg = torch.from_numpy(rng.random(int(mix.sum()))).to(dev)
+    words[mix] = torch.searchsorted(torch.from_numpy(bg_cdf).to(dev), u_bg, right=True,
+                                    out_int32=True)
+    words = words.clamp_(0, v - 1).cpu().numpy()
+    clicks = np.maximum(1, (freq * rng.beta(2, 5, size=n_queries))).astype(np.int64)
+
+    return SynthLog(
+        keys=keys,
+        timestamps=np.linspace(0, cfg.n_days, cfg.n_requests),
+        true_topic=true_topic,
+        n_terms=n_terms.astype(np.int64),
+        n_chars=n_chars,
+        doc_qid=clicked.astype(np.int64),
+        doc_offsets=starts,
+        doc_tokens=words,
+        clicks=clicks,
+        phi=phi,
+        config=cfg,
+    )

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.alloc import proportional_allocation
+from ..core.device import resolve_device
 from ..kernels.cache_ops.ops import (
     PAD_HI as _PAD_HI_INT,
     PAD_LO as _PAD_LO_INT,
@@ -57,20 +58,6 @@ PAD_H64 = (np.uint64(PAD_HI) << np.uint64(32)) | np.uint64(PAD_LO)
 #: state keys whose words are uint32 in the JAX package
 _U32_KEYS = ("ks", "static_hi", "static_lo")
 _STATE_KEYS = ("ks", "value", "clock", "static_hi", "static_lo", "static_value")
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; raises for "cuda" without a card
-    (the port never carries on quietly on the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on the card by default and no CUDA device is "
-            "available; pass device='cpu' to run the plain versions"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
-    return dev
 
 
 def splitmix64(x: np.ndarray) -> np.ndarray:

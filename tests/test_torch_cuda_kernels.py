@@ -6,9 +6,18 @@ machine with an H100 (the kernels build for sm_90a):
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Every output -- the packed state, the value table, the per-request probe
-outputs and the write plan -- must be equal (tolerance 0: integer state).
-This file imports no JAX: the machine with the card has none.
+Every output of the cache kernels -- the packed state, the value table,
+the per-request probe outputs and the write plan -- must be equal
+(tolerance 0: integer state).  The topic-score kernel is held to the
+tolerances of ``tests/test_kernels.py``: scores rtol 1e-4; ``top`` exact,
+except where the plain version's top two scores lie within 1e-4 relative
+(the two sum in different orders); the confidence within rtol 1e-4 of the
+plain epilogue (softmax) applied to the kernel's own scores, and, on the
+sweep shapes of ``tests/test_kernels.py``, of the plain version's.  At V =
+4096 the scores reach ~3400, where an f32 ulp is 2.4e-4: two summation
+orders differ by ~1e-3 there, and the confidence, a softmax of score
+differences, by up to ~1e-3 relative.  This file imports
+no JAX: the machine with the card has none.
 """
 import numpy as np
 import pytest
@@ -24,6 +33,8 @@ from repro_torch.kernels.cache_ops import (  # noqa: E402
 from repro_torch.kernels.cache_ops import kernel as pac_kernel  # noqa: E402
 from repro_torch.kernels.cache_ops import ref  # noqa: E402
 from repro_torch.kernels.cache_ops import serve_kernel  # noqa: E402
+from repro_torch.kernels.topic_score import kernel as ts_kernel  # noqa: E402
+from repro_torch.kernels.topic_score import topic_score_op, topic_score_plain  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     Broker,
     BucketSpec,
@@ -216,3 +227,103 @@ def test_broker_on_card_equals_broker_on_cpu(cuda, one_call, fresh):
         assert np.array_equal(a[k], b[k]), k
     gpu.close()
     cpu.close()
+
+
+# -- topic_score -----------------------------------------------------------------
+
+#: the sweep of tests/test_kernels.py, then the pipeline's chunk shape
+TOPIC_SHAPES = [(4, 300, 37), (64, 1024, 500), (256, 513, 96), (8, 128, 8), (130, 640, 200),
+                (8192, 4096, 96)]
+
+
+def _topic_case(seed, b, v, k, zero_every=0, tie=None):
+    """Seeded ``(counts, log_phi_t)`` on the CPU, as tests/test_kernels.py
+    draws them; ``zero_every`` empties every n-th row, ``tie = (i, j)``
+    makes topic columns i and j identical and the largest in every word,
+    so every non-empty row ties between them."""
+    rng = np.random.default_rng(seed)
+    counts = rng.poisson(0.05, size=(b, v)).astype(np.float32)
+    counts[:, 0] += 1.0
+    if zero_every:
+        counts[::zero_every] = 0.0
+    lpt = np.log(rng.dirichlet(np.ones(v) * 0.1, size=k).T + 1e-12).astype(np.float32)
+    if tie is not None:
+        lpt[:, tie[0]] = lpt[:, tie[1]] = lpt.max(axis=1)
+    return torch.from_numpy(counts), torch.from_numpy(np.ascontiguousarray(lpt))
+
+
+def _assert_topic_close(got, want, same_conf=True):
+    s, t, c = (x.cpu() for x in got)
+    s0, t0, c0 = (x.cpu() for x in want)
+    assert t.dtype == torch.int32 and s.shape == s0.shape
+    torch.testing.assert_close(s, s0, rtol=1e-4, atol=1e-3)
+    own = torch.softmax(s, dim=-1).gather(1, t.long()[:, None])[:, 0]
+    torch.testing.assert_close(c, own, rtol=1e-4, atol=0.0)
+    if same_conf:
+        torch.testing.assert_close(c, c0, rtol=1e-4, atol=1e-4)
+    differ = torch.nonzero(t != t0)[:, 0]
+    gap = (s0[differ, t[differ].long()] - s0[differ, t0[differ].long()]).abs()
+    assert bool((gap <= 1e-4 * s0[differ, t0[differ].long()].abs()).all()), differ
+
+
+@pytest.mark.parametrize("b,v,k", TOPIC_SHAPES)
+def test_topic_score_kernel_equals_plain_on_the_card(cuda, b, v, k):
+    assert not torch.backends.cuda.matmul.allow_tf32  # the plain product stays IEEE f32
+    counts, lpt = (x.to(cuda) for x in _topic_case(b * 7 + k, b, v, k))
+    before = ts_kernel.launches
+    got = topic_score_op(counts, lpt)
+    torch.cuda.synchronize()
+    assert ts_kernel.launches == before + 1
+    _assert_topic_close(got, topic_score_plain(counts, lpt), same_conf=v <= 1024)
+
+
+@pytest.mark.parametrize("b,v,k", [(1000, 4097, 96), (37, 129, 1), (301, 1000, 500),
+                                   (33, 17, 130)])
+def test_topic_score_kernel_edge_cases_on_the_card(cuda, b, v, k):
+    """All-zero rows (top 0, conf 1/K), K = 1, K = 500, B and V off every
+    tile, and exact ties between two identical topic columns (the lower
+    index wins)."""
+    tie = (min(3, k - 1), min(7, k - 1)) if k > 1 else None
+    counts, lpt = (x.to(cuda) for x in _topic_case(k, b, v, k, zero_every=9, tie=tie))
+    s, t, c = topic_score_op(counts, lpt)
+    torch.cuda.synchronize()
+    _assert_topic_close((s, t, c), topic_score_plain(counts, lpt), same_conf=v <= 1024)
+    zero = torch.arange(0, b, 9, device=cuda)
+    assert bool((t[zero] == 0).all()) and bool((s[zero] == 0).all())
+    torch.testing.assert_close(c[zero], torch.full_like(c[zero], 1.0 / k))
+    if tie is not None and tie[0] != tie[1]:
+        assert torch.equal(s[:, tie[0]], s[:, tie[1]])
+        full = counts.sum(1) > 0
+        assert bool((t[full] == tie[0]).all())
+
+
+def test_topic_score_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    counts, lpt = (x.to(cuda) for x in _topic_case(0, 16, 32, 4))
+    with pytest.raises(TypeError):
+        ts_kernel.topic_score(counts.double(), lpt)
+    with pytest.raises(ValueError):
+        ts_kernel.topic_score(counts, lpt.cpu())
+    with pytest.raises(ValueError):
+        ts_kernel.topic_score(counts, lpt.t().contiguous().t())
+    with pytest.raises(ValueError):
+        ts_kernel.topic_score(counts[:, :-1].contiguous(), lpt)
+    s, t, c = ts_kernel.topic_score(counts[:0], lpt)
+    assert s.shape == (0, 4) and t.shape == (0,) and c.shape == (0,)
+
+
+def test_topic_pipeline_on_card_equals_cpu(cuda):
+    """The whole topic pipeline (generate, EM with atomics, the kernel) on
+    the card against the same on the CPU (the plain versions)."""
+    from repro_torch.querylog import SynthConfig, generate
+    from repro_torch.topics import run_pipeline
+
+    cfg = SynthConfig(n_requests=40_000, n_topics=12, n_topical_queries=4_000,
+                      n_notopic_queries=1_500, n_buckets=64, vocab_size=512, seed=4)
+    gpu = run_pipeline(generate(cfg, device=cuda), lda_iters=8, lda_subsample=600, device=cuda)
+    cpu = run_pipeline(generate(cfg, device="cpu"), lda_iters=8, lda_subsample=600, device="cpu")
+    torch.testing.assert_close(gpu.model.phi.cpu(), cpu.model.phi, rtol=1e-6, atol=0.0)
+    assert np.array_equal(gpu.assignment.key_topic, cpu.assignment.key_topic)
+    # conf is a softmax of score differences, which two f32 summation orders
+    # leave ~1e-4 apart at |scores| ~ 300
+    np.testing.assert_allclose(gpu.assignment.confidence, cpu.assignment.confidence, rtol=1e-3)
+    assert gpu.topical_request_fraction == cpu.topical_request_fraction
