@@ -45,7 +45,28 @@ Phases (any failure raises and exits non-zero):
    hit rates, each split into static, topic and dynamic hits.  On a small log the card's pipeline must equal the CPU's
    (topic-word distributions within rtol 1e-6, topics identical but for
    near-ties);
-8. kernels: each cache kernel against its plain PyTorch version on the
+8. lm: the LM back end the serving CLI puts behind the cache, gemma-2b at
+   its full published width (18 layers, d 2048, 8 query heads over one KV
+   head of 256, d_ff 16384, 256,000 words, bf16; 2.51B parameters drawn on
+   the card from a seeded generator), at the registry's decode_32k shape
+   with its 32768 positions and the batch cut from 128 to 64 (the bf16 KV
+   cache of 128 would not fit 80 GB beside the weights).  64 seeded
+   prompts of 32704 tokens are prefilled one per call through the plain
+   chunked attention (its score products on TF32 tensor cores, set here);
+   64 greedy decode steps then run through the ``decode_attention`` kernel,
+   18 launches a step (checked), and the first steps again, teacher-forced
+   by the kernel path's tokens, with the plain decode attention: every
+   layer's call there is also run through the kernel on the same inputs and
+   held to the decode tolerance below, the logits must agree within
+   ``LM_LOGIT_RTOL`` of the row's largest logit and the greedy tokens but
+   for near-ties.  A control step with every attention output zeroed says
+   whether that logit check can see the attention at all (at the
+   reference's init it cannot: the residual stream is ~45, the attention
+   ~0.01).  Prints the prefill time, ms per decode step on the host clock
+   and the device's idle share over a profiled window.  Then the LM back end (the serving
+   CLI's miss handler) answers one batch of the serve phase's misses, its
+   ids held to forward's top-k;
+9. kernels: each cache kernel against its plain PyTorch version on the
    card, tolerance 0 (integer state), on the serving path's own batch (the
    inputs of the second served batch's launch, captured), on a batch spread
    uniformly over the sets, and on an edge-case batch (deep same-set
@@ -58,14 +79,23 @@ Phases (any failure raises and exits non-zero):
    within rtol 1e-4, ``top`` exact or within a near-tie, confidences within
    rtol 1e-4 of the plain softmax of the kernel's scores; timed
    beside its bound, the plain version and ``torch.matmul`` (the product
-   alone).
+   alone).  ``decode_attention`` against its plain version (2e-6 in f32;
+   in bf16 one bf16 ulp plus 1e-5 of the largest output, ``decode_close``)
+   on the decode path's own last call (one layer's full cache), in bf16
+   and cast to f32, gemma2-27b's and glm4-9b's decode geometries at S =
+   32768, the sweep of tests/test_kernels.py, cur = 0, S off every tile and
+   the partial-fill poison case, each error printed beside the output's
+   RMS; timed on the path's call beside its byte
+   bound, the plain version and ``scaled_dot_product_attention``.
 
-The line before the last is one JSON object ``{"kernels": [...]}``; the
-last is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
-script exits non-zero and prints no result.
+The last three lines are one JSON object ``{"kernels": [...]}``, the
+card's name and power limit as ``nvidia-smi`` gives them, and
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -115,6 +145,72 @@ LDA_ITERS = 30
 #: to ~1e-3 relative, so it is held to the epilogue, and its difference to
 #: the plain version's is printed.)
 TOPIC_RTOL = 1e-4
+#: phase lm: gemma-2b at the registry's decode_32k shape with its sequence
+#: length kept and the batch cut from 128 to 64: a bf16 KV cache of 128 x
+#: 32768 is 77.3 GB, which with the 5.0 GB of weights does not fit the 80 GB
+#: card; 64 needs 38.7 GB.  The prompts fill all but the last LM_STEPS slots.
+LM_BATCH = 64
+LM_SEQ = 32768
+LM_STEPS = 64
+LM_PROMPT = LM_SEQ - LM_STEPS
+LM_PREFILL_BATCH = 1
+LM_PLAIN_STEPS = 4
+LM_PROFILE = 4
+#: kernel against plain decode logits, relative to the row's largest logit,
+#: and the top-two gap (same measure) within which the greedy tokens may
+#: differ.  The model is bf16: each layer's attention output is rounded to 8
+#: significant bits after the two paths sum S = 32768 terms in different
+#: orders; a one-ulp difference there can move later bf16 roundings by an
+#: ulp, through 18 layers, and the logits themselves are bf16 products
+#: (an ulp is 2**-8 to 2**-7 of a logit).  2**-6 is two to four ulps of the
+#: row's largest logit.
+LM_LOGIT_RTOL = 2.0**-6
+#: decode_attention against its plain version.  f32: tests/test_kernels.py's
+#: 2e-6.  bf16: the two compute in f32 and differ there only by their
+#: summation orders, so their bf16 outputs differ by at most one ulp, 2**-7
+#: of the plain output, and near zero by the f32 difference itself, well
+#: under 1e-5 of the largest output.  (At S = 32768 the outputs are ~0.01,
+#: so test_kernels' fixed 3e-2 would pass a kernel that dropped a chunk.)
+DECODE_F32_TOL = 2e-6
+DECODE_BF16_RTOL = 2.0**-7
+DECODE_BF16_ATOL = 1e-5
+
+
+def decode_close(got, want):
+    """``(ok, max abs err, largest err / bound, RMS of want)`` of a
+    decode_attention output against the plain one, at the tolerance of its
+    dtype (DECODE_*)."""
+    if want.dtype == torch.float32:
+        rtol, atol = DECODE_F32_TOL, DECODE_F32_TOL
+    else:
+        rtol, atol = DECODE_BF16_RTOL, DECODE_BF16_ATOL * float(want.float().abs().max())
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bound = atol + rtol * want.abs()
+    return (bool((err <= bound).all()), float(err.max()), float((err / bound).max()),
+            float(want.pow(2).mean().sqrt()))
+
+
+@contextlib.contextmanager
+def patched(module, attr: str, fn):
+    """``module.attr`` is ``fn`` within the block."""
+    orig = getattr(module, attr)
+    setattr(module, attr, fn)
+    try:
+        yield orig
+    finally:
+        setattr(module, attr, orig)
+
+
+@contextlib.contextmanager
+def tf32():
+    """f32 matrix products on the TF32 tensor cores within the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def check(cond: bool, what: str) -> None:
@@ -243,9 +339,10 @@ def phase_warm(broker, train):
 
 
 class Capture:
-    """Within the block, clones of the inputs of one call of
-    ``module.attr`` (the ``index``-th, from 0), taken before the call: the
-    cache kernels update ``ks`` and ``value`` in place."""
+    """Within the block, the positional inputs of one call of
+    ``module.attr`` (the ``index``-th, from 0), taken before the call, the
+    tensors cloned: the cache kernels update ``ks`` and ``value`` in place,
+    and a decode step the KV cache."""
 
     def __init__(self, module, attr: str, index: int):
         self.ops, self.attr, self.index = module, attr, index
@@ -254,17 +351,31 @@ class Capture:
     def __enter__(self):
         orig = self.orig = getattr(self.ops, self.attr)
 
-        def shim(*args):
+        def shim(*args, **kwargs):
             if self.calls == self.index:
-                self.args = tuple(a.clone() for a in args)
+                self.args = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
             self.calls += 1
-            return orig(*args)
+            return orig(*args, **kwargs)
 
         setattr(self.ops, self.attr, shim)
         return self
 
     def __exit__(self, *exc):
         setattr(self.ops, self.attr, self.orig)
+
+
+class MissRecorder:
+    """A back end that answers as ``fn`` and keeps the ids of its
+    ``index``-th call (from 0)."""
+
+    def __init__(self, fn, index: int):
+        self.fn, self.index, self.calls, self.ids = fn, index, 0, None
+
+    def __call__(self, q):
+        if self.calls == self.index:
+            self.ids = np.array(q, copy=True)
+        self.calls += 1
+        return self.fn(q)
 
 
 def phase_serve(device, cache, true_topic, first, warm, serve):
@@ -279,6 +390,8 @@ def phase_serve(device, cache, true_topic, first, warm, serve):
     for name, one_call in (("one_call", True), ("legacy", False)):
         if one_call:
             broker = first
+            # the ids the broker sends its back end on one batch's misses: phase lm
+            recorder = broker.backends[0] = MissRecorder(backend, index=1)
         else:
             broker = make_broker(cache, true_topic, device, fused_one_call=False)
             broker.state = state_from_numpy(warm, device)
@@ -296,6 +409,8 @@ def phase_serve(device, cache, true_topic, first, warm, serve):
             snap = state_to_numpy(broker.state)
         h2, v2, s2 = serve_stream(broker, batches[N_CPU_BATCHES:])
         launches = {"serve_fused": srv.launches, "probe_and_commit": pac.launches}
+        if one_call:
+            broker.backends[0] = backend
         counts = dict(broker.dispatch_counts)
         secs = np.asarray(secs + s2)
         n_req = sum(len(q) for q in batches)
@@ -305,7 +420,8 @@ def phase_serve(device, cache, true_topic, first, warm, serve):
               f"dispatches {counts}, kernel launches {launches}")
         out[name] = dict(hits=hits + h2, vals=vals + v2, launches=launches, counts=counts,
                          snap=snap, broker=broker, batches=batches, secs=secs,
-                         stats=dataclasses.replace(broker.stats), args=cap.args)
+                         stats=dataclasses.replace(broker.stats), args=cap.args,
+                         miss_ids=recorder.ids if one_call else None)
     one, legacy = out["one_call"], out["legacy"]
     nb = len(batches)
     check(one["counts"].get("one_call") == nb, "one one_call dispatch per batch")
@@ -327,6 +443,25 @@ def phase_serve(device, cache, true_topic, first, warm, serve):
     return out
 
 
+def device_kernels(warm, run, what: str):
+    """The device kernels the torch profiler recorded while ``run()`` ran,
+    after ``warm()`` ran in a first session (it starts the tracer); fails
+    when no device time was recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        warm()
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    check(bool(kern), f"the profiler recorded no device time for {what}")
+    return kern
+
+
 def profile_window(broker, batches, batch_s: float):
     """Where a served batch's time goes: device time by kernel (torch
     profiler) against the unprofiled median batch time, and the host's
@@ -335,19 +470,12 @@ def profile_window(broker, batches, batch_s: float):
     import io
     import pstats
 
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts):  # the first session starts the tracer
-        broker.serve(batches[0])
-    with profile(activities=acts) as prof:
+    def rest():
         for q in batches[1:]:
             broker.serve(q)
-        torch.cuda.synchronize()
+
     n = len(batches) - 1
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
-    check(bool(kern), "the profiler recorded no device time for the served batches")
+    kern = device_kernels(lambda: broker.serve(batches[0]), rest, "the served batches")
     busy = sum(e.device_time_total for e in kern) / n / 1e6  # s per batch
     top = sorted(kern, key=lambda e: -e.device_time_total)[:8]
     names = "; ".join(f"{e.key[:70]} {e.device_time_total / n:.1f}us x{e.count / n:.1f}"
@@ -524,7 +652,207 @@ def phase_topics(device, cfg, keys, true_topic, n_train, served, static_truth):
     return dict(launches=launches, args=cap.args, n_classified=n_cls)
 
 
-# -- phase 8: kernels against their plain versions -----------------------------
+# -- phase 8: the LM behind the cache --------------------------------------------
+
+
+def lm_profile(params, cache, cfg, tokens, step_s: float) -> str:
+    """Device busy time per decode step (torch profiler) over LM_PROFILE
+    steps from the prompt's end, against the unprofiled host-clock step."""
+    from repro_torch.models import transformer as tf
+
+    cache["len"].fill_(LM_PROMPT)
+    state = {"cache": cache}
+
+    def steps(first, last):
+        for t in range(first, last):
+            state["cache"] = tf.decode_step(params, state["cache"], tokens[t], cfg)[1]
+
+    kern = device_kernels(lambda: steps(0, 1), lambda: steps(1, LM_PROFILE + 1),
+                          "the decode steps")
+    busy = sum(e.device_time_total for e in kern) / LM_PROFILE / 1e3  # ms per step
+    top = sorted(kern, key=lambda e: -e.device_time_total)[:6]
+    names = "; ".join(f"{e.key[:60]} {e.device_time_total / LM_PROFILE / 1e3:.3f}ms "
+                      f"x{e.count / LM_PROFILE:.1f}" for e in top)
+    ops = sum(e.count for e in kern) / LM_PROFILE
+    return (f"device busy {busy:.3f} ms/step over {LM_PROFILE} steps, {ops:.1f} device ops/step, idle share "
+            f"{1 - busy / (step_s * 1e3):.4f} of the unprofiled {step_s * 1e3:.3f} ms; per step: "
+            f"{names}")
+
+
+def phase_lm(device, miss_ids):
+    """gemma-2b at full published width behind the cache: prefill, greedy
+    decode through the decode_attention kernel, the same steps with the
+    plain attention, and the LM back end on one batch of the serve phase's
+    misses."""
+    from repro_torch.configs import gemma_2b
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.launch.serve import lm_backend, query_tokens, top_k_ids
+    from repro_torch.models import transformer as tf
+
+    torch.cuda.empty_cache()
+    cfg = gemma_2b.CONFIG
+    dec = gemma_2b.SHAPES["decode_32k"].dims
+    check(dec["seq_len"] == LM_SEQ, "decode_32k keeps its sequence length")
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device=device).manual_seed(SEED), cfg)
+    n_params = sum(p.numel() for p in params.parameters())
+    # the analytic count leaves out the final norm's scale
+    check(n_params == cfg.param_count() + cfg.d_model, "gemma-2b's parameter count")
+    cache = tf.init_cache(cfg, LM_BATCH, LM_SEQ, device=device)
+    torch.cuda.synchronize()
+    kv_gb = 2 * cache["k"].numel() * cache["k"].element_size() / 1e9
+    print(f"lm/model: gemma-2b (configs/registry.py) at full width: {cfg.n_layers} layers, "
+          f"d {cfg.d_model}, {cfg.n_heads} query heads over {cfg.n_kv_heads} KV head, head_dim "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocabulary {cfg.vocab_size}, {cfg.dtype}; "
+          f"{n_params} parameters ({n_params * 2 / 1e9:.3f} GB) from a seeded generator on the "
+          f"card; KV cache {LM_BATCH} x {LM_SEQ} ({kv_gb:.3f} GB; decode_32k's batch "
+          f"{dec['global_batch']} would need {kv_gb * dec['global_batch'] / LM_BATCH:.3f} GB); "
+          f"set up in {time.perf_counter() - t0:.3f} s")
+
+    prompts = np.random.default_rng(SEED + 13).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT), dtype=np.int64)
+    first = torch.empty((LM_BATCH, cfg.vocab_size), dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the prompts' f32 attention scores of bf16 operands on the TF32 tensor
+    # cores: the products are exact there, the sums are not IEEE f32 (as an
+    # XLA bf16 dot with f32 accumulation is not); the rest of the run keeps
+    # IEEE f32, the yardstick of the kernels' checks
+    with tf32():
+        for i in range(0, LM_BATCH, LM_PREFILL_BATCH):
+            tok = torch.from_numpy(prompts[i : i + LM_PREFILL_BATCH]).to(device)
+            logits, pc = tf.prefill(params, tok, cfg, max_len=LM_SEQ)
+            first[i : i + LM_PREFILL_BATCH] = logits
+            cache["k"][:, i : i + LM_PREFILL_BATCH] = pc["k"]
+            cache["v"][:, i : i + LM_PREFILL_BATCH] = pc["v"]
+            del pc
+    cache["len"].fill_(LM_PROMPT)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(first).all()), "prefill logits are finite")
+    print(f"lm/prefill: {LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_PREFILL_BATCH} per call, "
+          f"plain chunked attention (q_chunk {cfg.q_chunk}, TF32 score products): {pre_s:.3f} s, "
+          f"{LM_BATCH * LM_PROMPT / pre_s:.1f} tokens/s")
+
+    # greedy decode through the kernel; the counts read only this run
+    nxt = first.argmax(dim=-1, keepdim=True)
+    tokens, kept = [nxt], []
+    dak.launches = 0
+    # the last step's last layer: its K/V (one layer's full cache) are cloned
+    with Capture(tf, "decode_attention_op", LM_STEPS * cfg.n_layers - 1) as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(LM_STEPS):
+            logits, cache = tf.decode_step(params, cache, tokens[t], cfg)
+            if t < LM_PLAIN_STEPS:
+                kept.append(logits)
+            tokens.append(logits.argmax(dim=-1, keepdim=True))
+        enqueue_s = (time.perf_counter() - t0) / LM_STEPS  # the host's share
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / LM_STEPS
+    launches = dak.launches
+    check(launches == cfg.n_layers * LM_STEPS,
+          f"decode_attention launches {launches} == {cfg.n_layers} layers x {LM_STEPS} steps")
+    check(int(cache["len"]) == LM_SEQ, "the cache is full after the decode steps")
+    check(all(bool(torch.isfinite(x).all()) for x in kept), "decode logits are finite")
+    print(f"lm/decode: {LM_STEPS} greedy steps x batch {LM_BATCH} from {LM_PROMPT} to {LM_SEQ} "
+          f"cached positions: {step_s * 1e3:.3f} ms/step (host clock, synchronised at the end; "
+          f"the host had enqueued them at {enqueue_s * 1e3:.3f} ms/step), "
+          f"{LM_BATCH / step_s:.1f} tokens/s; decode_attention launches {launches}")
+
+    # the same steps, teacher-forced by the kernel path's tokens, with the
+    # plain decode attention; the slots past a step's position are masked,
+    # so the cache the kernel run filled serves as the prefilled one.  Each
+    # layer's plain call is also run through the kernel on the same inputs
+    # (comparison launches, counted apart from the path's)
+    layers = dict(n=0, ok=True, err=0.0, ratio=0.0, rms=float("inf"))
+
+    def compare(q, k, v, cur, *rest, use_kernel=True):
+        want = op(q, k, v, cur, *rest, use_kernel=False)
+        ok, err, ratio, rms = decode_close(op(q, k, v, cur, *rest), want)
+        layers.update(n=layers["n"] + 1, ok=layers["ok"] and ok, err=max(layers["err"], err),
+                      ratio=max(layers["ratio"], ratio), rms=min(layers["rms"], rms))
+        return want
+
+    cache["len"].fill_(LM_PROMPT)
+    worst, worst_rel, flips, near, peak = 0.0, 0.0, 0, 0, 0.0
+    with patched(tf, "decode_attention_op", compare) as op:
+        for t in range(LM_PLAIN_STEPS):
+            logits, cache = tf.decode_step(params, cache, tokens[t], cfg, use_kernel=False)
+            scale = logits.abs().amax(dim=-1, keepdim=True)
+            diff = (logits - kept[t]).abs()
+            worst = max(worst, float(diff.max()))
+            worst_rel = max(worst_rel, float((diff / scale).max()))
+            peak = max(peak, float(scale.max()))
+            differ = torch.nonzero(logits.argmax(dim=-1) != tokens[t + 1][:, 0])[:, 0]
+            flips += len(differ)
+            if len(differ):
+                top2 = logits[differ].topk(2, dim=-1).values
+                near += int(((top2[:, 0] - top2[:, 1]) <= LM_LOGIT_RTOL * scale[differ, 0]).sum())
+    check(layers["n"] == cfg.n_layers * LM_PLAIN_STEPS, "every plain layer call was compared")
+    check(dak.launches == launches + layers["n"],
+          "the plain path launched no kernel beyond its comparisons")
+    print(f"lm/plain: {LM_PLAIN_STEPS} teacher-forced steps with the plain decode attention: "
+          f"each of their {layers['n']} layer calls through the kernel on the same inputs: max "
+          f"abs err {layers['err']:.3e}, {layers['ratio']:.4f} of the bound (one bf16 ulp + "
+          f"{DECODE_BF16_ATOL} of the largest output; smallest output RMS {layers['rms']:.3e}); "
+          f"logits max abs diff {worst:.6f}, {worst_rel:.6f} of the row's largest |logit| "
+          f"(tolerance {LM_LOGIT_RTOL}; largest |logit| {peak:.3f}); greedy tokens differ on "
+          f"{flips} of {LM_PLAIN_STEPS * LM_BATCH}, {near} of them where the plain top two lie "
+          f"within the tolerance")
+    check(layers["ok"], f"decode_attention != plain on the decode path's layer calls "
+          f"({layers['ratio']:.4f} of the bound)")
+    check(worst_rel <= LM_LOGIT_RTOL, f"kernel and plain decode logits differ by {worst_rel}")
+    check(near == flips, "the greedy tokens differ beyond near-ties")
+
+    # the control: step 0 with every layer's attention output zeroed.  Where
+    # this too stays within LM_LOGIT_RTOL, the logit check cannot see the
+    # attention and only the layer comparison above holds the kernel
+    cache["len"].fill_(LM_PROMPT)
+    with patched(tf, "decode_attention_op", lambda q, *a, **kw: torch.zeros_like(q)):
+        ctrl = tf.decode_step(params, cache, tokens[0], cfg)[0]
+    ctrl_rel = float(((ctrl - kept[0]).abs() / kept[0].abs().amax(dim=-1, keepdim=True)).max())
+    ctrl_flips = int((ctrl.argmax(dim=-1) != tokens[1][:, 0]).sum())
+    print(f"lm/control: step 0 with every attention output zeroed moves the logits by "
+          f"{ctrl_rel:.6f} of the row's largest |logit| and changes {ctrl_flips} of "
+          f"{LM_BATCH} greedy tokens: the logit check {'can' if ctrl_rel > LM_LOGIT_RTOL else 'cannot'}"
+          f" see the attention (tolerance {LM_LOGIT_RTOL})")
+    profile_line = lm_profile(params, cache, cfg, tokens, step_s)
+    print(f"lm/profile: {profile_line}")
+
+    # the back end the cache calls on a miss
+    check(miss_ids is not None and len(miss_ids) > 0, "captured a batch of back-end misses")
+    backend_lm = lm_backend(params, cfg, value_dim=VDIM, device=device)
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = backend_lm(miss_ids)
+        secs.append(time.perf_counter() - t0)
+    check(ids.shape == (len(miss_ids), VDIM) and ids.dtype == np.int32, "back-end ids' layout")
+    check(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()), "back-end ids are words")
+    check(all(len(set(r)) == VDIM for r in ids.tolist()), "back-end ids are distinct per query")
+    # the reference's own way on a few queries: forward's logits at the last
+    # position.  Its (16, 8, V) product rounds to bf16 apart from the back
+    # end's (16, V) one, so a logit may move by an ulp and reorder near-ties:
+    # rank by rank, the chosen ids must score within an ulp in forward's logits
+    few = torch.from_numpy(query_tokens(miss_ids[:16], cfg.vocab_size)).to(device)
+    full = tf.forward(params, few, cfg)[0][:, -1]
+    want = top_k_ids(full, VDIM)
+    got = torch.from_numpy(ids[:16]).to(device).long()
+    s_got, s_want = full.gather(1, got), full.gather(1, want)
+    check(bool(((s_got - s_want).abs() <= 2.0**-7 * s_want.abs()).all()),
+          "the back end's ids score as forward's top-k on 16 queries")
+    same = int((got == want).all(dim=1).sum())
+    print(f"lm/backend: {len(miss_ids)} missed query ids (one batch of the serve phase) -> "
+          f"{VDIM} doc ids each through gemma-2b: {secs[1] * 1e3:.3f} ms per miss batch "
+          f"(first call {secs[0] * 1e3:.3f} ms); on 16 of them the ids equal forward's top-k "
+          f"on {same} rows, the rest within an ulp of their scores")
+    return dict(params=params, cache=cache, cfg=cfg, launches=launches, args=cap.args,
+                step_s=step_s)
+
+
+# -- phase 9: kernels against their plain versions -----------------------------
 
 
 def _words(rng, shape):
@@ -755,7 +1083,125 @@ def check_topic_score(device, topics, flush):
     return row
 
 
-def phase_kernels(device, served, topics):
+def decode_cases(device, real):
+    """``(label, q, k, v, cur, scale, softcap, window)``: the decode path's
+    captured call (one layer's real cache at the decode shape), gemma2-27b's
+    and glm4-9b's decode geometries on seeded data at S = 32768, the sweep
+    of tests/test_kernels.py in f32 and bf16, cur = 0, and S off every
+    tile."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+
+    def draw(b, hkv, g, d, s, dtype):
+        return tuple(torch.randn(shape, generator=gen, device=device).to(dtype)
+                     for shape in ((b, hkv, g, d), (b, s, hkv, d), (b, s, hkv, d)))
+
+    def cur(c):
+        return torch.tensor(c, dtype=torch.int32, device=device)
+
+    q, k, v, c, scale, cap, win = real
+    cases = [("gemma-2b decode, layer 17's cache", q, k, v, c, scale, cap, win),
+             ("gemma-2b decode, layer 17's cache in f32", q.float(), k.float(), v.float(), c,
+              scale, cap, win)]
+    g27 = draw(8, 16, 2, 128, LM_SEQ, torch.bfloat16)
+    cases.append(("gemma2-27b geometry B=8", *g27, cur(LM_SEQ - 100), 144**-0.5, 50.0, 4096))
+    glm = draw(16, 2, 16, 128, LM_SEQ, torch.bfloat16)
+    cases.append(("glm4-9b geometry B=16", *glm, cur(LM_SEQ - 1001), 128**-0.5, None, None))
+    rng = np.random.default_rng(SEED + 22)
+    for b, hkv, g, d, s, cap_, win_ in ((2, 2, 4, 64, 256, None, None),
+                                         (1, 1, 8, 128, 1024, 50.0, 300),
+                                         (3, 4, 1, 128, 777, None, None),
+                                         (2, 1, 4, 256, 100, 30.0, 64),
+                                         (1, 2, 2, 64, 513, None, 128)):
+        arrays = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+                  for shape in ((b, hkv, g, d), (b, s, hkv, d), (b, s, hkv, d))]
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append((f"sweep B={b} Hkv={hkv} G={g} d={d} S={s} {dtype}",
+                          *(a.to(dtype) for a in arrays), cur(s - 7), d**-0.5, cap_, win_))
+    for dtype in (torch.float32, torch.bfloat16):
+        off = draw(2, 2, 4, 128, 1017, dtype)
+        cases.append((f"cur=0 S=1017 {dtype}", *off, cur(0), 128**-0.5, None, None))
+        cases.append((f"S=1017 off every tile, window {dtype}", *off, cur(1016), 128**-0.5,
+                      30.0, 100))
+    return cases
+
+
+def decode_bytes(q, k, cur: int, window) -> int:
+    """Bytes decode attention must move: the K and V rows the mask keeps,
+    q, and the output."""
+    s = k.shape[1]
+    lo = max(0, cur - window + 1) if window else 0
+    n = max(0, min(cur, s - 1) - lo + 1)
+    b, _, hkv, d = k.shape
+    return 2 * b * n * hkv * d * k.element_size() + 2 * q.numel() * q.element_size()
+
+
+def check_decode_attention(device, lm, flush):
+    """decode_attention against its plain version on the card; times it on
+    the decode path's own call beside its byte bound, the plain version and
+    scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+
+    check(lm["args"] is not None, "captured the decode path's last decode_attention call")
+    row = dict(max_abs_err=0.0)
+    for label, q, k, v, cur, scale, cap, win in decode_cases(device, lm["args"]):
+        got = dak.decode_attention(q, k, v, cur, scale, cap, win)
+        want = decode_attention_plain(q, k, v, cur, scale, cap, win)
+        ok, err, ratio, rms = decode_close(got, want)
+        check(ok, f"decode_attention != plain on {label} (max abs err {err}, {ratio} of the "
+                  f"bound)")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        line = (f"kernels/decode_attention/{label}: max abs err {err:.3e}, {ratio:.4f} of the "
+                f"bound, output RMS {rms:.3e}")
+        if k.shape[1] == LM_SEQ:
+            ms = time_device(lambda: dak.decode_attention(q, k, v, cur, scale, cap, win), 20,
+                             flush, lambda: None)
+            nb = decode_bytes(q, k, int(cur), win)
+            line += (f"; device {ms:.6f} ms (L2 flushed), {nb / ms / 1e6:.1f} GB/s, byte "
+                     f"bound {nb / HBM_BYTES_PER_S * 1e3:.6f} ms")
+        print(line)
+    # the poison case of tests/test_kernels.py: the slots past cur do not count
+    q, k, v = (torch.from_numpy(np.random.default_rng(SEED + 23).normal(size=shape)
+                                .astype(np.float32)).to(device)
+               for shape in ((1, 1, 2, 64), (1, 512, 1, 64), (1, 512, 1, 64)))
+    c = torch.tensor(100, dtype=torch.int32, device=device)
+    o1 = dak.decode_attention(q, k, v, c, 0.125)
+    k[:, 101:], v[:, 101:] = 1e9, -1e9
+    check(torch.equal(o1, dak.decode_attention(q, k, v, c, 0.125)),
+          "poisoning the slots past cur_len changed decode_attention's output")
+    print("kernels/decode_attention/partial fill: the slots past cur_len do not count")
+
+    q, k, v, cur, scale, cap, win = lm["args"]
+    n_valid = min(int(cur), k.shape[1] - 1) + 1
+    b, hkv, g, d = q.shape
+    qs = q.reshape(b, hkv * g, 1, d)  # query head kv * G + g
+    ks = k[:, :n_valid].permute(0, 2, 1, 3).contiguous()
+    vs = v[:, :n_valid].permute(0, 2, 1, 3).contiguous()
+    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale, enable_gqa=True)  # noqa: E731
+    lib_err = float((lib().reshape(q.shape).float()
+                     - decode_attention_plain(q, k, v, cur, scale).float()).abs().max())
+    noop = lambda: None  # noqa: E731
+    nb = decode_bytes(q, k, int(cur), win)
+    row.update(
+        ms=time_device(lambda: dak.decode_attention(q, k, v, cur, scale, cap, win), 50, flush, noop),
+        plain_ms=time_host(lambda: decode_attention_plain(q, k, v, cur, scale, cap, win), 10,
+                           flush, noop),
+        library_ms=time_device(lib, 50, flush, noop),
+        bound_ms=nb / HBM_BYTES_PER_S * 1e3,
+    )
+    del ks, vs
+    print(f"kernels/decode_attention/real: B={b} Hkv={hkv} G={g} d={d} S={k.shape[1]} cur="
+          f"{int(cur)} {q.dtype}: device {row['ms']:.6f} ms/launch (L2 flushed), "
+          f"{nb / row['ms'] / 1e6:.1f} GB/s; plain {row['plain_ms']:.6f} ms; "
+          f"scaled_dot_product_attention (enable_gqa, K/V copied to (B, Hkv, {n_valid}, d) "
+          f"before timing; max abs diff to plain {lib_err:.3e}) {row['library_ms']:.6f} ms; byte "
+          f"bound {row['bound_ms']:.6f} ms ({nb / 1e9:.6f} GB)")
+    return row
+
+
+def phase_kernels(device, served, topics, lm):
     from repro_torch.kernels.cache_ops import kernel as pac
     from repro_torch.kernels.cache_ops import ref
     from repro_torch.kernels.cache_ops import serve_kernel as srv
@@ -832,6 +1278,7 @@ def phase_kernels(device, served, topics):
               f"wrapper's host work {r['wrapper_ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
               f"byte bound {r['bound_ms']:.6f} ms")
     rows["topic_score"] = check_topic_score(device, topics, flush)
+    rows["decode_attention"] = check_decode_attention(device, lm, flush)
     del flush
     return rows
 
@@ -891,7 +1338,10 @@ def main() -> int:
     phase("cpu", phase_cpu, ccfg, static, true_topic, warm, served)
     topics = phase("topics", phase_topics, device, cfg, keys, true_topic, n_train, served,
                    static)
-    rows = phase("kernels", phase_kernels, device, served, topics)
+    lm = phase("lm", phase_lm, device, served["one_call"]["miss_ids"])
+    rows = phase("kernels", phase_kernels, device, served, topics, lm)
+    lm_launches = lm["launches"]
+    del lm
 
     kernels = []
     # each kernel's launches come from the run of the path that uses it
@@ -912,6 +1362,13 @@ def main() -> int:
         replaces="src/repro/kernels/topic_score/kernel.py:51", launches=topics["launches"],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+    ))
+    r = rows["decode_attention"]
+    kernels.append(dict(
+        name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/kernel.py:90", launches=lm_launches,
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
     ))
     print(f"run: {time.perf_counter() - t_run:.3f} s after the card check")
     print(json.dumps({"kernels": kernels}))

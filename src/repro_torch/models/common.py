@@ -1,0 +1,78 @@
+"""Shared model building blocks: the port of ``repro.models.common``.
+
+The pieces the LM needs, with the reference's numerics: Gemma-style
+RMSNorm (``1 + scale``, f32 accumulation), the tanh-approximate GELU, the
+logit softcap, and half-split (not interleaved) rotary embeddings with f32
+angles.  Initialisation draws a truncated normal from an explicit
+``torch.Generator``: the numbers differ from ``jax.random``'s, so the tests
+carry the JAX weights across instead (``transformer.params_from_numpy``).
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def truncated_normal(
+    shape, stddev: float, dtype: torch.dtype, generator: torch.Generator, device
+) -> torch.Tensor:
+    """``stddev`` times a standard normal truncated to [-2, 2], drawn in f32
+    on ``device`` (the generator's) and cast to ``dtype``, as
+    ``repro.models.common.truncated_normal`` does."""
+    lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
+    x = torch.empty(shape, dtype=torch.float32, device=device)
+    x.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=generator)
+    x.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(stddev)
+    return x.to(dtype)
+
+
+def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return x @ w.to(x.dtype)
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    # Gemma-style (1 + scale) parameterisation, f32 accumulation
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "gelu": gelu,
+    "silu": F.silu,
+    "relu": F.relu,
+}
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+@functools.lru_cache(maxsize=None)
+def rope_frequencies(head_dim: int, theta: float = 10_000.0, device=None) -> torch.Tensor:
+    """(head_dim/2,) f32, computed on the CPU once per device: a decode step
+    then copies nothing from the host (a copy would wait for the card)."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    return (1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exponent)).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)  # (hd/2,)
+    angles = positions[..., None].float() * freqs  # (..., seq, hd/2)
+    angles = angles[..., None, :]  # (..., seq, 1, hd/2): broadcast over heads
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)

@@ -1,0 +1,482 @@
+"""Decoder-only transformer for LM serving: the port of
+``repro.models.transformer`` (dense layers).
+
+One implementation, config-switched as in the reference: GQA / MQA
+attention (query head ``kv * G + g``), RoPE, gated activations (GeGLU,
+SwiGLU), local/global alternating attention with a sliding window, the
+attention and final logit softcaps, post norms, query scale, qkv bias, and
+tied or untied embeddings.
+
+Parameters are a :class:`ParamTree`: an ``nn.Module`` holding the
+reference's layer-stacked tensors under its tree's names
+(``params["layers"]["attn"]["q"]`` is ``(L, d, H * hd)``), so
+:func:`params_from_numpy` carries the JAX weights across unchanged.  A
+Python loop over the layers takes the place of ``lax.scan``.
+
+Serving only: :func:`forward`, :func:`prefill`, :func:`init_cache` and
+:func:`decode_step`.  Decode attention runs through
+:func:`repro_torch.kernels.decode_attention.decode_attention_op` (the CUDA
+kernel on the card) on layer i's ``(B, S, Hkv, d)`` cache slice; the cache
+is updated in place, and its fill level ``len`` is a 0-d int32 tensor on
+the device, so a decode step makes no host sync.  Not ported yet, and
+raising ``NotImplementedError``: MoE layers, the sequence-parallel residual
+(``act_seq_axis``), the ``decode_window_slice`` lever, and training
+(``loss_fn``, gradients, which ``remat`` serves).  ``kv_quant`` is a field
+the reference declares and never reads; the port does the same.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..kernels.decode_attention import decode_attention_op
+from .common import ACTIVATIONS, apply_rope, dense, rmsnorm, softcap, truncated_normal
+
+NEG_INF = -1e30
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1 item 12)"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int  # per-expert hidden size
+    dense_residual_ff: int = 0
+    router_aux_weight: float = 0.01
+    impl: str = "capacity"
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """The reference's config, field for field (``dtype`` a torch dtype)."""
+
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    activation: str = "silu"  # gate activation: "silu" (SwiGLU) | "gelu" (GeGLU)
+    rope_theta: float = 10_000.0
+    #: "global" or "local_global" (even layers local / odd global, gemma2)
+    attn_pattern: str = "global"
+    window: int = 4096
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    #: overrides the default head_dim**-0.5 attention scale
+    query_scale: Optional[float] = None
+    qkv_bias: bool = False
+    post_norms: bool = False
+    embed_scale: bool = False
+    tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    moe_batch_axes: Optional[Tuple[str, ...]] = None
+    moe_tp_axis: Optional[str] = None
+    moe_fsdp_axes: Tuple[str, ...] = ()
+    norm_eps: float = 1e-6
+    dtype: Any = torch.bfloat16
+    #: query chunk for memory-bounded attention (None = unchunked)
+    q_chunk: Optional[int] = 1024
+    remat: bool = True
+    scan_layers: bool = True
+    act_seq_axis: Optional[str] = None
+    decode_window_slice: bool = False
+    kv_quant: bool = False
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    def layer_is_local(self) -> np.ndarray:
+        if self.attn_pattern == "local_global":
+            return (np.arange(self.n_layers) % 2) == 0
+        return np.zeros(self.n_layers, dtype=bool)
+
+    def param_count(self) -> int:
+        """Analytic parameter count."""
+        d, hd = self.d_model, self.head_dim
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        if self.moe is not None:
+            ff = self.moe.n_experts * (3 * d * self.moe.d_ff) + d * self.moe.n_experts
+            if self.moe.dense_residual_ff:
+                ff += 3 * d * self.moe.dense_residual_ff
+        else:
+            ff = 3 * d * self.d_ff
+        per_layer = attn + ff + 2 * d
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + embed
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module, indexed like the reference's
+    pytree: ``params["layers"]["mlp"]["wi"]``."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for name, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(name, ParamTree(val))
+            else:
+                self.register_parameter(name, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def tree(self) -> Dict[str, Any]:
+        """The tensors as a nested dict."""
+        out: Dict[str, Any] = {n: p.data for n, p in self._parameters.items()}
+        out.update({n: m.tree() for n, m in self._modules.items()})
+        return out
+
+
+def _check_serving(params: ParamTree, cfg: TransformerConfig) -> None:
+    if cfg.moe is not None:
+        raise _not_ported("MoE (_moe_ffn, _moe_local, set_moe_mesh)")
+    if cfg.act_seq_axis is not None:
+        raise _not_ported("the sequence-parallel residual (_constrain_residual)")
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
+        raise _not_ported("training (loss_fn, gradients, remat)")
+
+
+def init_params(generator: torch.Generator, cfg: TransformerConfig) -> ParamTree:
+    """Seeded random weights on the generator's device, with the
+    reference's shapes, names and scales (``init_params``, ``init_layer``).
+    Stacked tensors are drawn a layer at a time, so the f32 draw never
+    holds more than one layer's tensor."""
+    if cfg.moe is not None:
+        raise _not_ported("MoE (init of the expert weights)")
+    dev = generator.device
+    d, hd, n_l, dt = cfg.d_model, cfg.head_dim, cfg.n_layers, cfg.dtype
+
+    def tn(shape, std, dtype=dt):
+        return truncated_normal(shape, std, dtype, generator, dev)
+
+    def stacked(shape, std):
+        out = torch.empty((n_l, *shape), dtype=dt, device=dev)
+        for i in range(n_l):
+            out[i] = tn(shape, std)
+        return out
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    attn = {
+        "q": stacked((d, cfg.n_heads * hd), d**-0.5),
+        "k": stacked((d, cfg.n_kv_heads * hd), d**-0.5),
+        "v": stacked((d, cfg.n_kv_heads * hd), d**-0.5),
+        "o": stacked((cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5),
+    }
+    if cfg.qkv_bias:
+        attn["q_bias"] = zeros(n_l, cfg.n_heads * hd)
+        attn["k_bias"] = zeros(n_l, cfg.n_kv_heads * hd)
+        attn["v_bias"] = zeros(n_l, cfg.n_kv_heads * hd)
+    layers: Dict[str, Any] = {
+        "attn": attn,
+        "pre_attn_norm": {"scale": zeros(n_l, d)},
+        "pre_mlp_norm": {"scale": zeros(n_l, d)},
+        "mlp": {
+            "wi": stacked((d, 2 * cfg.d_ff), d**-0.5),
+            "wo": stacked((cfg.d_ff, d), cfg.d_ff**-0.5),
+        },
+    }
+    if cfg.post_norms:
+        layers["post_attn_norm"] = {"scale": zeros(n_l, d)}
+        layers["post_mlp_norm"] = {"scale": zeros(n_l, d)}
+    tree: Dict[str, Any] = {
+        "embed": tn((cfg.vocab_size, d), 1.0),
+        "layers": layers,
+        "final_norm": {"scale": zeros(d)},
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = tn((d, cfg.vocab_size), d**-0.5)
+    return ParamTree(tree)
+
+
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.array(a)  # a writable copy
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits as torch's
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree: Dict[str, Any], device="cuda") -> ParamTree:
+    """The port's parameters from the reference's ``init_params`` pytree as
+    numpy arrays (``jax.tree.map(np.asarray, params)``), bit for bit."""
+    def conv(t):
+        return {k: conv(v) if isinstance(v, dict) else _tensor_from_numpy(v, device)
+                for k, v in t.items()}
+
+    return ParamTree(conv(tree))
+
+
+def _layer(params: ParamTree, i: int) -> Dict[str, Any]:
+    """Layer i's slice of the stacked layer tree, as nested dicts."""
+    def sl(t):
+        return {k: sl(v) if isinstance(v, dict) else v[i] for k, v in t.items()}
+
+    return sl(params["layers"].tree())
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _scale(cfg: TransformerConfig) -> float:
+    return cfg.query_scale if cfg.query_scale is not None else cfg.head_dim**-0.5
+
+
+def _f32_scores(q, k) -> torch.Tensor:
+    """``einsum("bqngh,bknh->bqngk")`` of the upcast operands, in f32.  On
+    the card the product follows the caller's
+    ``torch.backends.cuda.matmul.allow_tf32``: off (PyTorch's default), IEEE
+    f32; on, the TF32 tensor cores, several times faster.  Products of bf16
+    operands are exact there (their 8 significant bits fit TF32's 11), but
+    the cores' sums are not IEEE f32, as an XLA bf16 dot with f32
+    accumulation on a GPU is not either.  The model sets no precision: its
+    entry point does."""
+    return torch.einsum("bqngh,bknh->bqngk", q.float(), k.float())
+
+
+def _attention_scores(q, k, cfg: TransformerConfig, q_pos, k_pos, is_local: bool):
+    """q: (B, Sq, Nkv, G, hd); k: (B, Sk, Nkv, hd) -> f32 weights
+    (B, Sq, Nkv, G, Sk): f32 scores of the operands, softcap, mask, f32
+    softmax."""
+    logits = _f32_scores(q, k).mul_(_scale(cfg))
+    logits = softcap(logits, cfg.attn_logit_softcap)
+    mask = k_pos[None, :] <= q_pos[:, None]  # (Sq, Sk)
+    if is_local:
+        mask = mask & (k_pos[None, :] > (q_pos[:, None] - cfg.window))
+    logits.masked_fill_(~mask[None, :, None, None, :], NEG_INF)
+    return torch.softmax(logits, dim=-1)
+
+
+def _attend(q, k, v, cfg: TransformerConfig, positions, is_local: bool):
+    """Causal self-attention over ``positions = arange(S)`` (queries and
+    keys alike), in query chunks of ``cfg.q_chunk``.  The f32 weights
+    multiply the upcast V; the result is cast to q's dtype.
+
+    A chunk reads only the keys its mask can keep (up to its last query,
+    and from its first query's window on a local layer): the keys it skips
+    weigh exp(-1e30 - m) = 0 in the reference, so this is the same
+    function.  Unlike the reference, which falls back to the unchunked
+    (S, S) scores when S is not a multiple of ``q_chunk``, a ragged last
+    chunk is chunked too."""
+    sq = q.shape[1]
+    chunk = cfg.q_chunk
+    vf = v.float()
+    if chunk is None or sq <= chunk:
+        w = _attention_scores(q, k, cfg, positions, positions, is_local)
+        return torch.einsum("bqngk,bknh->bqngh", w, vf).to(q.dtype)
+    outs = []
+    for c0 in range(0, sq, chunk):
+        c1 = min(c0 + chunk, sq)
+        lo = max(0, c0 - cfg.window + 1) if is_local else 0
+        w = _attention_scores(q[:, c0:c1], k[:, lo:c1], cfg, positions[c0:c1],
+                              positions[lo:c1], is_local)
+        outs.append(torch.einsum("bqngk,bknh->bqngh", w, vf[:, lo:c1]).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _qkv(layer, x: torch.Tensor, cfg: TransformerConfig, positions):
+    b, s, _ = x.shape
+    a = layer["attn"]
+    q = dense(a["q"], x)
+    k = dense(a["k"], x)
+    v = dense(a["v"], x)
+    if cfg.qkv_bias:
+        q = q + a["q_bias"].to(q.dtype)
+        k = k + a["k_bias"].to(k.dtype)
+        v = v + a["v_bias"].to(v.dtype)
+    q = q.reshape(b, s, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q.reshape(b, s, -1, cfg.head_dim), positions, cfg.rope_theta).reshape(q.shape)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# FFN, layer, model
+# ---------------------------------------------------------------------------
+
+
+def _act(cfg: TransformerConfig, gate: torch.Tensor) -> torch.Tensor:
+    return ACTIVATIONS["gelu" if cfg.activation == "gelu" else "silu"](gate)
+
+
+def _dense_ffn(mlp, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    gate, up = dense(mlp["wi"], x).chunk(2, dim=-1)
+    return dense(mlp["wo"], _act(cfg, gate) * up)
+
+
+def _finish(layer, x, attn, cfg: TransformerConfig):
+    """The rest of a layer after attention: output projection, post norm,
+    residual, then the FFN block."""
+    b, s = x.shape[:2]
+    attn = dense(layer["attn"]["o"], attn.reshape(b, s, cfg.n_heads * cfg.head_dim))
+    if cfg.post_norms:
+        attn = rmsnorm(layer["post_attn_norm"]["scale"], attn, cfg.norm_eps)
+    x = x + attn
+    h = rmsnorm(layer["pre_mlp_norm"]["scale"], x, cfg.norm_eps)
+    y = _dense_ffn(layer["mlp"], h, cfg)
+    if cfg.post_norms:
+        y = rmsnorm(layer["post_mlp_norm"]["scale"], y, cfg.norm_eps)
+    return x + y
+
+
+def layer_forward(
+    layer,
+    x: torch.Tensor,
+    cfg: TransformerConfig,
+    positions: torch.Tensor,
+    is_local: bool,
+    k_cache: Optional[torch.Tensor] = None,
+    v_cache: Optional[torch.Tensor] = None,
+    cache_len: Optional[torch.Tensor] = None,
+    use_kernel: bool = True,
+):
+    """One decoder layer; returns ``(x, aux, new_cache)``.  In decode mode
+    (caches given) x is (B, 1, D); the new K/V are written into the caches
+    in place at ``cache_len``, clamped to the last slot as the reference's
+    ``dynamic_update_slice`` clamps, and the attention is
+    ``decode_attention_op`` over the whole (B, S, Hkv, d) buffer."""
+    h = rmsnorm(layer["pre_attn_norm"]["scale"], x, cfg.norm_eps)
+    q, k, v = _qkv(layer, h, cfg, positions)
+    if k_cache is None:
+        attn = _attend(q, k, v, cfg, positions, is_local)
+        return _finish(layer, x, attn, cfg), torch.zeros((), device=x.device), None
+    if cfg.decode_window_slice:
+        raise _not_ported("the decode_window_slice lever")
+    slot = cache_len.clamp(0, k_cache.shape[1] - 1).long().reshape(1)
+    k_cache.index_copy_(1, slot, k)
+    v_cache.index_copy_(1, slot, v)
+    attn = decode_attention_op(
+        q[:, 0], k_cache, v_cache, cache_len, _scale(cfg), cfg.attn_logit_softcap,
+        cfg.window if is_local else None, use_kernel=use_kernel,
+    )
+    return _finish(layer, x, attn, cfg), torch.zeros((), device=x.device), (k_cache, v_cache)
+
+
+def _embed(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    if cfg.embed_scale:
+        # the scale is rounded to the model's dtype first: 45.25 in bf16 at d = 2048
+        # (a CPU scalar tensor: passed to the kernel as a value, not copied)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
+    return x
+
+
+def _unembed(params: ParamTree, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    # the product is rounded to the model's dtype before the f32 softcap
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].to(x.dtype).t()
+    else:
+        logits = x @ params["lm_head"].to(x.dtype)
+    return softcap(logits.float(), cfg.final_logit_softcap)
+
+
+def hidden(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """The final-normed residual stream (B, S, D) of ``tokens`` (B, S)."""
+    _check_serving(params, cfg)
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    loc = cfg.layer_is_local()
+    for i in range(cfg.n_layers):
+        x, _, _ = layer_forward(_layer(params, i), x, cfg, positions, bool(loc[i]))
+    return rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps)
+
+
+def forward(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig):
+    """tokens (B, S) -> (logits (B, S, V) f32, aux): the reference's forward
+    (aux is 0: no MoE)."""
+    x = hidden(params, tokens, cfg)
+    return _unembed(params, x, cfg), torch.zeros((), device=x.device)
+
+
+def loss_fn(params, batch, cfg):
+    raise _not_ported("training (loss_fn)")
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + single-token decode with a KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int, device="cuda") -> Dict[str, torch.Tensor]:
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "len": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def decode_step(
+    params: ParamTree,
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,  # (B, 1)
+    cfg: TransformerConfig,
+    use_kernel: bool = True,
+):
+    """One decode step: append the token, attend over the cache, return
+    ``(logits (B, V) f32, cache)``.  The returned cache holds the same K/V
+    tensors, updated in place, and a new ``len`` = ``len + 1``.
+    ``use_kernel=False`` runs the plain decode attention (a comparison)."""
+    _check_serving(params, cfg)
+    cur = cache["len"]
+    x = _embed(params, tokens, cfg)
+    positions = cur.reshape(1)
+    loc = cfg.layer_is_local()
+    for i in range(cfg.n_layers):
+        x, _, _ = layer_forward(
+            _layer(params, i), x, cfg, positions, bool(loc[i]), k_cache=cache["k"][i],
+            v_cache=cache["v"][i], cache_len=cur, use_kernel=use_kernel,
+        )
+    x = rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps)
+    logits = _unembed(params, x, cfg)
+    return logits[:, 0], {"k": cache["k"], "v": cache["v"], "len": cur + 1}
+
+
+def prefill(
+    params: ParamTree,
+    tokens: torch.Tensor,  # (B, S)
+    cfg: TransformerConfig,
+    max_len: Optional[int] = None,
+):
+    """Process a full prompt, building the KV cache: ``(logits of the last
+    position (B, V) f32, cache)`` with ``max_len`` slots (default S)."""
+    _check_serving(params, cfg)
+    b, s = tokens.shape
+    max_len = max_len or s
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(s, device=x.device)
+    cache = init_cache(cfg, b, max_len, device=x.device)
+    loc = cfg.layer_is_local()
+    for i in range(cfg.n_layers):
+        layer = _layer(params, i)
+        h = rmsnorm(layer["pre_attn_norm"]["scale"], x, cfg.norm_eps)
+        q, k, v = _qkv(layer, h, cfg, positions)
+        x = _finish(layer, x, _attend(q, k, v, cfg, positions, bool(loc[i])), cfg)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+    x = rmsnorm(params["final_norm"]["scale"], x[:, -1:], cfg.norm_eps)
+    cache["len"].fill_(s)
+    return _unembed(params, x, cfg)[:, 0], cache

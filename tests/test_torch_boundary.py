@@ -22,6 +22,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.kernels._build, repro_torch.kernels.cache_ops\n"
         "import repro_torch.serving, repro_torch.querylog\n"
         "import repro_torch.topics, repro_torch.kernels.topic_score, repro_torch.core.fast\n"
+        "import repro_torch.kernels.decode_attention, repro_torch.models.common\n"
+        "import repro_torch.models.transformer, repro_torch.configs, repro_torch.configs.gemma_2b\n"
+        "import repro_torch.launch.serve\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

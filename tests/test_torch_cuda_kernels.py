@@ -16,8 +16,14 @@ plain epilogue (softmax) applied to the kernel's own scores, and, on the
 sweep shapes of ``tests/test_kernels.py``, of the plain version's.  At V =
 4096 the scores reach ~3400, where an f32 ulp is 2.4e-4: two summation
 orders differ by ~1e-3 there, and the confidence, a softmax of score
-differences, by up to ~1e-3 relative.  This file imports
-no JAX: the machine with the card has none.
+differences, by up to ~1e-3 relative.  The decode-attention kernel is held
+to its plain version at 2e-6 in f32 (``tests/test_kernels.py``'s) and, in
+bf16, within one bf16 ulp of the plain output (rtol 2**-7) plus 1e-5 of the
+largest output: both compute in f32 and differ there only by their
+summation orders, so their bf16 roundings differ by at most one ulp, and
+near zero by the f32 difference.  A fixed 3e-2 would be the size of the
+outputs themselves at S in the thousands.  This file imports no JAX: the
+machine with the card has none.
 """
 import numpy as np
 import pytest
@@ -33,6 +39,11 @@ from repro_torch.kernels.cache_ops import (  # noqa: E402
 from repro_torch.kernels.cache_ops import kernel as pac_kernel  # noqa: E402
 from repro_torch.kernels.cache_ops import ref  # noqa: E402
 from repro_torch.kernels.cache_ops import serve_kernel  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_op,
+    decode_attention_plain,
+)
+from repro_torch.kernels.decode_attention import kernel as da_kernel  # noqa: E402
 from repro_torch.kernels.topic_score import kernel as ts_kernel  # noqa: E402
 from repro_torch.kernels.topic_score import topic_score_op, topic_score_plain  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -327,3 +338,153 @@ def test_topic_pipeline_on_card_equals_cpu(cuda):
     # leave ~1e-4 apart at |scores| ~ 300
     np.testing.assert_allclose(gpu.assignment.confidence, cpu.assignment.confidence, rtol=1e-3)
     assert gpu.topical_request_fraction == cpu.topical_request_fraction
+
+
+# -- decode_attention --------------------------------------------------------------
+
+#: tests/test_kernels.py's sweep, then gemma2-27b's (Hkv 16, G 2, d 128,
+#: softcap 50, window 4096), glm4-9b's (Hkv 2, G 16, d 128) and gemma-2b's
+#: (Hkv 1, G 8, d 256) decode geometries at a shorter S, S off every tile,
+#: groups that are not a power of two or exceed 16, and narrow heads
+DECODE_SHAPES = [
+    (2, 2, 4, 64, 256, None, None),
+    (1, 1, 8, 128, 1024, 50.0, 300),
+    (3, 4, 1, 128, 777, None, None),
+    (2, 1, 4, 256, 100, 30.0, 64),
+    (1, 2, 2, 64, 513, None, 128),
+    (2, 16, 2, 128, 8200, 50.0, 4096),
+    (2, 2, 16, 128, 4133, None, None),
+    (4, 1, 8, 256, 2081, None, None),
+    (3, 1, 3, 64, 33, None, None),
+    (2, 1, 3, 16, 70, 20.0, None),
+    (1, 1, 32, 64, 300, None, 100),
+]
+
+
+def _decode_case(seed, b, hkv, g, d, s, dtype):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+               for shape in ((b, hkv, g, d), (b, s, hkv, d), (b, s, hkv, d)))
+    return q, k, v
+
+
+def _assert_decode_close(got, want):
+    """2e-6 in f32; in bf16 one ulp of the plain output plus 1e-5 of its
+    largest value (see the module's docstring)."""
+    assert got.dtype == want.dtype
+    if want.dtype == torch.float32:
+        tol = dict(rtol=2e-6, atol=2e-6)
+    else:
+        tol = dict(rtol=2.0**-7, atol=1e-5 * float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("b,hkv,g,d,s,cap,win", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_equals_plain_on_the_card(cuda, b, hkv, g, d, s, cap, win, dtype):
+    q, k, v = (x.to(cuda) for x in _decode_case(s + g, b, hkv, g, d, s, dtype))
+    for cur in sorted({0, s // 3, s - 7, s - 1}):
+        cur_t = torch.tensor(cur, dtype=torch.int32, device=cuda)
+        before = da_kernel.launches
+        got = decode_attention_op(q, k, v, cur_t, d**-0.5, cap, win)
+        torch.cuda.synchronize()
+        assert da_kernel.launches == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        want = decode_attention_plain(q, k, v, cur_t, d**-0.5, cap, win)
+        _assert_decode_close(got, want)
+
+
+def test_decode_attention_kernel_reads_only_the_filled_cache(cuda):
+    """tests/test_kernels.py's partial-fill case: poisoning the slots past
+    cur_len changes nothing, in f32 and bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (x.to(cuda) for x in _decode_case(5, 1, 1, 2, 64, 512, dtype))
+        cur = torch.tensor(100, dtype=torch.int32, device=cuda)
+        o1 = decode_attention_op(q, k, v, cur, 64**-0.5)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, 101:] = 1e9
+        v2[:, 101:] = -1e9
+        o2 = decode_attention_op(q, k2, v2, cur, 64**-0.5)
+        torch.cuda.synchronize()
+        assert torch.equal(o1, o2)
+
+
+@pytest.mark.parametrize("cur,win", [(40, None), (40, 4), (40, 20), (-3, None), (31, 1)])
+def test_decode_attention_kernel_clamps_like_the_reference(cuda, cur, win):
+    """cur >= S (every slot valid; with a window past the cache none, and
+    the reference's softmax is uniform over S), cur < 0, window 1."""
+    q, k, v = (x.to(cuda) for x in _decode_case(9, 2, 2, 4, 64, 32, torch.float32))
+    cur_t = torch.tensor(cur, dtype=torch.int32, device=cuda)
+    got = decode_attention_op(q, k, v, cur_t, 0.125, 30.0, win)
+    want = decode_attention_plain(q, k, v, cur_t, 0.125, 30.0, win)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-6, atol=2e-6)
+
+
+def test_decode_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = (x.to(cuda) for x in _decode_case(1, 1, 1, 2, 64, 64, torch.float32))
+    cur = torch.tensor(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        da_kernel.decode_attention(q, k.bfloat16(), v, cur, 0.1)
+    with pytest.raises(TypeError):
+        da_kernel.decode_attention(q.double(), k.double(), v.double(), cur, 0.1)
+    with pytest.raises(ValueError):
+        da_kernel.decode_attention(q, k, v, cur.cpu(), 0.1)
+    with pytest.raises(TypeError):
+        da_kernel.decode_attention(q, k, v, cur.long(), 0.1)
+    with pytest.raises(ValueError):
+        da_kernel.decode_attention(q, torch.cat([k, k], 3)[..., :64], v, cur, 0.1)
+    with pytest.raises(ValueError):
+        da_kernel.decode_attention(q, k[:, :, :, :32].contiguous(), v, cur, 0.1)
+    with pytest.raises(ValueError):
+        big = torch.zeros(1, 1, 32, 256, device=cuda)
+        da_kernel.decode_attention(big, k.new_zeros(1, 8, 1, 256), k.new_zeros(1, 8, 1, 256),
+                                   cur, 0.1)
+    with pytest.raises(ValueError):
+        da_kernel.decode_attention(q, k, v, cur, 0.1, softcap=0.0)
+    # head widths the kernel does not take: off the 16-byte grid, not a
+    # divisor of 256, wider than 256; and K or V off 16-byte alignment
+    for d, dtype in ((18, torch.float32), (4, torch.bfloat16), (40, torch.float32),
+                     (512, torch.float32)):
+        q2, k2, v2 = (x.to(cuda) for x in _decode_case(2, 1, 1, 2, d, 8, dtype))
+        with pytest.raises(ValueError):
+            da_kernel.decode_attention(q2, k2, v2, cur, 0.1)
+    buf = torch.zeros(k.numel() + 1, device=cuda)
+    shifted = buf[1:].view(k.shape).copy_(k)  # 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError):
+        da_kernel.decode_attention(q, shifted, v, cur, 0.1)
+    with pytest.raises(ValueError):
+        da_kernel.decode_attention(q, k, shifted, cur, 0.1)
+
+
+def test_decode_steps_on_the_card_go_through_the_kernel(cuda):
+    """A small gemma2-style LM (local/global layers, softcaps) in f32: the
+    card's decode steps, one kernel launch per layer and step, against the
+    same steps with the plain decode attention on the card (2e-5: only the
+    attention's summation order differs) and on the CPU (1e-4: every
+    product sums in another order)."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    cfg = dc.replace(get_arch("gemma2-27b").smoke_config, n_layers=4, window=8)
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 13)))
+    runs = {}
+    for name, dev, use_kernel in (("kernel", cuda, True), ("plain", cuda, False),
+                                  ("cpu", torch.device("cpu"), True)):
+        p = params.to(dev)
+        _, cache = tf.prefill(p, tok.to(dev), cfg, max_len=20)
+        before = da_kernel.launches
+        out = []
+        for step in range(5):
+            nxt = torch.full((3, 1), 7 + step, device=dev)
+            logits, cache = tf.decode_step(p, cache, nxt, cfg, use_kernel=use_kernel)
+            out.append(logits.cpu())
+        torch.cuda.synchronize()
+        expect = 5 * cfg.n_layers if (use_kernel and dev.type == "cuda") else 0
+        assert da_kernel.launches - before == expect
+        runs[name] = torch.stack(out)
+    torch.testing.assert_close(runs["kernel"], runs["plain"], rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(runs["kernel"], runs["cpu"], rtol=1e-4, atol=1e-4)
