@@ -65,8 +65,27 @@ Phases (any failure raises and exits non-zero):
    ~0.01).  Prints the prefill time, ms per decode step on the host clock
    and the device's idle share over a profiled window.  Then the LM back end (the serving
    CLI's miss handler) answers one batch of the serve phase's misses, its
-   ids held to forward's top-k;
-9. kernels: each cache kernel against its plain PyTorch version on the
+   ids held to forward's top-k.  The LM's weights and KV cache are then
+   released (the peak memory is printed);
+9. recsys: two-tower retrieval at its full published width (8M x 256 user
+   and 4M x 256 item tables, towers 1024-512-256, f32; 3.07B parameters,
+   12.3 GB, drawn on the card from a seeded generator), its serve_p99
+   (batch 512), serve_bulk (262,144) and retrieval_cand (1 user against
+   1,000,000 candidates) steps on seeded ids, each run RECSYS_STEPS times
+   after a first run, every run's output equal to the first's.  Each step
+   makes two ``embedding_bag`` kernel launches (the user and item bags,
+   counted); the first run's bags must equal the plain version bit for bit
+   and each step its ``use_kernel=False`` path.  Prints ms per step on the
+   host clock and the device's idle share (profiled).  Then a small
+   two-tower on the card against the CPU (RECSYS_RTOL, RECSYS_ATOL),
+   ``embedding_bag`` against its plain version bit for bit on edge cases
+   (bf16 tables, all-pad bags, a bag of one, repeated ids, the last row,
+   D in {18, 50, 64, 256}, B = 1, bags of 40 ids), timed on the serve_bulk
+   user bag and the retrieval_cand item bag with CUDA events (L2 flushed)
+   beside its byte bound, the plain version and
+   ``torch.nn.functional.embedding_bag``; and SASRec, DIN and MIND at their
+   full published widths, one serve_p99 step each (ms and a checksum);
+10. kernels: each cache kernel against its plain PyTorch version on the
    card, tolerance 0 (integer state), on the serving path's own batch (the
    inputs of the second served batch's launch, captured), on a batch spread
    uniformly over the sets, and on an edge-case batch (deep same-set
@@ -97,6 +116,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -174,6 +194,16 @@ LM_LOGIT_RTOL = 2.0**-6
 DECODE_F32_TOL = 2e-6
 DECODE_BF16_RTOL = 2.0**-7
 DECODE_BF16_ATOL = 1e-5
+#: phase recsys: two-tower at the registry's full config (8M x 256 user and
+#: 4M x 256 item tables, towers 1024-512-256, f32): the tables' 3,072,000,000
+#: parameters and each tower's 919,296
+RECSYS_PARAMS = 3_073_838_592
+#: two-tower's steps and how often each is timed after its first run
+RECSYS_STEPS = (("serve_p99", 20), ("serve_bulk", 5), ("retrieval_cand", 5))
+RECSYS_PROFILE = 3
+#: the card's steps against the CPU's at a small width: the CPU tests' f32
+#: tolerance (the GEMMs sum in other orders)
+RECSYS_RTOL, RECSYS_ATOL = 1e-5, 1e-6
 
 
 def decode_close(got, want):
@@ -852,7 +882,240 @@ def phase_lm(device, miss_ids):
                 step_s=step_s)
 
 
-# -- phase 9: kernels against their plain versions -----------------------------
+# -- phase 9: recsys serving, two-tower through the embedding_bag kernel --------
+
+
+def recsys_small_check(device) -> None:
+    """Two-tower at its smoke config widened to the full embedding (256,
+    towers 64-32): the card's serve and retrieval steps (through the kernel)
+    against the CPU's (the plain versions), same weights and batches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_recsys_step
+    from repro_torch.models import recsys
+
+    arch = get_arch("two-tower-retrieval")
+    arch = dataclasses.replace(arch, smoke_config=dataclasses.replace(
+        arch.smoke_config, embed_dim=256, tower_dims=(64, 32)))
+    params = recsys.init_two_tower(torch.Generator().manual_seed(SEED), arch.smoke_config)
+    worst = 0.0
+    for name in ("serve_p99", "retrieval_cand"):
+        got, want = (build_recsys_step(arch, arch.shape(name), p,
+                                       torch.Generator().manual_seed(SEED + 1), dev, smoke=True)
+                     for p, dev in ((recsys.params_from_numpy(params, device), device),
+                                    (params, "cpu")))
+        a, b = got.fn(got.batch).cpu(), want.fn(want.batch)
+        check(torch.allclose(a, b, rtol=RECSYS_RTOL, atol=RECSYS_ATOL),
+              f"two-tower {name} on the card differs from the CPU's")
+        worst = max(worst, float((a - b).abs().max()))
+    print(f"recsys/small: two-tower (embed 256, towers 64-32) serve and retrieval on the card "
+          f"within rtol {RECSYS_RTOL}, atol {RECSYS_ATOL} of the CPU's (max abs diff {worst:.3e})")
+
+
+def bag_edge_cases(device, user_table):
+    """``(label, table, bags)``: bf16 tables, all-pad bags, a bag of one,
+    repeated ids, the last row, D in {18, 50, 64, 256}, B = 1, bags longer
+    than a warp's 32 ids; and bags of those kinds on the served user table."""
+    rng = np.random.default_rng(SEED + 33)
+    cases = []
+    for d in (18, 50, 64, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            v = 1000
+            table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(dtype)
+            bags = rng.integers(-1, v, size=(64, 8))
+            bags[0], bags[1, 1:], bags[2], bags[3, ::2] = -1, -1, 7, v - 1
+            cases.append((f"D={d} {dtype}", table.to(device), torch.from_numpy(bags)))
+    table = torch.from_numpy(rng.normal(size=(300, 256)).astype(np.float32)).to(device)
+    cases.append(("B=1", table, torch.tensor([[5, -1, 299, 5]])))
+    cases.append(("L=40", table, torch.from_numpy(rng.integers(-1, 300, size=(50, 40)))))
+    v = user_table.shape[0]
+    bags = rng.integers(0, v, size=(64, 8))
+    bags[0], bags[1, 1:], bags[2], bags[3, ::2], bags[4, :3] = -1, -1, v - 1, v - 1, 12345
+    cases.append(("served user table", user_table, torch.from_numpy(bags)))
+    return [(label, t, b.to(device=device, dtype=torch.int32)) for label, t, b in cases]
+
+
+def bag_bytes(table, bags) -> int:
+    """Bytes the bag must move: each distinct valid row once, the ids, and
+    the output."""
+    rows = int(torch.unique(bags[bags >= 0]).numel())
+    d, es = table.shape[1], table.element_size()
+    return rows * d * es + bags.numel() * bags.element_size() + bags.shape[0] * d * es
+
+
+def time_embedding_bag(label, table, bags, flush):
+    """The kernel on one captured bag, timed beside its byte bound, the plain
+    version and ``torch.nn.functional.embedding_bag`` (the flat ids and
+    offsets made before timing)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import embedding_bag_plain
+    from repro_torch.kernels.embedding_bag import kernel as ebk
+
+    valid = bags >= 0
+    flat = bags[valid].long()
+    offsets = torch.cumsum(valid.sum(1), 0) - valid.sum(1)
+    lib = lambda: F.embedding_bag(flat, table, offsets, mode="mean")  # noqa: E731
+    lib_err = float((lib() - embedding_bag_plain(table, bags, "mean")).abs().max())
+    noop = lambda: None  # noqa: E731
+    nb = bag_bytes(table, bags)
+    row = dict(
+        ms=time_device(lambda: ebk.embedding_bag(table, bags, "mean"), 50, flush, noop),
+        plain_ms=time_host(lambda: embedding_bag_plain(table, bags, "mean"), 10, flush, noop),
+        library_ms=time_device(lib, 50, flush, noop),
+        bound_ms=nb / HBM_BYTES_PER_S * 1e3,
+    )
+    print(f"kernels/embedding_bag/{label}: B={bags.shape[0]} L={bags.shape[1]} over "
+          f"{table.shape[0]} x {table.shape[1]} {table.dtype}, {int(valid.sum())} valid ids: "
+          f"device {row['ms']:.6f} ms/launch (L2 flushed), {nb / row['ms'] / 1e6:.1f} GB/s; plain "
+          f"{row['plain_ms']:.6f} ms; F.embedding_bag (mean, flat ids and offsets; max abs diff "
+          f"to plain {lib_err:.3e}) {row['library_ms']:.6f} ms; byte bound {row['bound_ms']:.6f} "
+          f"ms ({nb / 1e9:.6f} GB: distinct rows, ids, output)")
+    return row
+
+
+def check_embedding_bag(device, calls, user_table):
+    """embedding_bag against its plain version, bit for bit, on the steps'
+    captured bags and on edge cases; times it on the serve_bulk user bag and
+    the retrieval_cand item bag."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_plain
+    from repro_torch.kernels.embedding_bag import kernel as ebk
+
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=device)  # 256 MiB > L2
+    for label, table, bags in bag_edge_cases(device, user_table):
+        for mode in ("sum", "mean"):
+            got = ebk.embedding_bag(table, bags, mode)
+            check(torch.equal(got, embedding_bag_plain(table, bags, mode)),
+                  f"embedding_bag != plain on the {label} case ({mode})")
+        print(f"kernels/embedding_bag/{label}: sum and mean equal to plain bit for bit (B="
+              f"{bags.shape[0]} L={bags.shape[1]} D={table.shape[1]}, all-pad bags "
+              f"{int((bags < 0).all(1).sum())})")
+    rows = {label: time_embedding_bag(label, table, bags, flush)
+            for label, table, bags in (("serve_bulk user bag", *calls["serve_bulk"][0][:2]),
+                                       ("retrieval_cand item bag", *calls["retrieval_cand"][1][:2]))}
+    del flush
+    row = dict(rows["serve_bulk user bag"], max_abs_err=0.0)
+    row["retrieval"] = rows["retrieval_cand item bag"]
+    return row
+
+
+def phase_recsys(device):
+    """Two-tower retrieval at full published width on the card: its serve
+    and retrieval steps through the embedding_bag kernel, each bag held to
+    the plain version bit for bit, each step to its plain path; then the
+    kernel's checks and times, and SASRec, DIN and MIND at serve_p99."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import embedding_bag_plain
+    from repro_torch.kernels.embedding_bag import kernel as ebk
+    from repro_torch.launch.steps import RECSYS_INIT, build_recsys_step
+    from repro_torch.models import recsys
+
+    arch = get_arch("two-tower-retrieval")
+    cfg = arch.config
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = recsys.init_two_tower(gen, cfg)
+    torch.cuda.synchronize()
+    n_params = recsys.param_count(params)
+    check(n_params == RECSYS_PARAMS, f"two-tower's parameter count {n_params}")
+    print(f"recsys/model: two-tower-retrieval (configs/registry.py) at full width: user table "
+          f"{cfg.n_users} x {cfg.embed_dim}, item table {cfg.n_items} x {cfg.embed_dim}, towers "
+          f"{'-'.join(map(str, cfg.tower_dims))}, {cfg.dtype}; {n_params} parameters "
+          f"({n_params * 4 / 1e9:.3f} GB) from a seeded generator on the card in "
+          f"{time.perf_counter() - t0:.3f} s")
+    steps = {name: build_recsys_step(arch, arch.shape(name), params, gen, device)
+             for name, _ in RECSYS_STEPS}
+
+    # the main path: every run of the three steps, the counts from 0; the
+    # first run's bag calls are kept (references: nothing is cloned)
+    calls = {name: [] for name in steps}
+    current = None
+
+    def record(table, bags, mode="sum"):
+        out = orig(table, bags, mode)
+        if len(calls[current]) < 2:
+            calls[current].append((table, bags, mode, out))
+        return out
+
+    first, secs = {}, {}
+    ebk.launches = 0
+    with patched(ebk, "embedding_bag", record) as orig:
+        for name, reps in RECSYS_STEPS:
+            current = name
+            step = steps[name]
+            first[name] = step.fn(step.batch)
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = step.fn(step.batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                check(torch.equal(out, first[name]), f"{name}: a run differs from the first")
+            secs[name] = np.asarray(times)
+    launches = ebk.launches
+    n_runs = sum(1 + reps for _, reps in RECSYS_STEPS)
+    check(launches == 2 * n_runs, f"embedding_bag launches {launches} == 2 bags x {n_runs} steps")
+
+    for name, _ in RECSYS_STEPS:
+        step, out = steps[name], first[name]
+        check(len(calls[name]) == 2, f"{name}: two embedding_bag calls a step")
+        for which, (table, bags, mode, got) in zip(("user", "item"), calls[name]):
+            check(torch.equal(got, embedding_bag_plain(table, bags, mode)),
+                  f"{name}: the {which} bag != plain")
+        before = ebk.launches
+        plain = step.fn(step.batch, use_kernel=False)
+        check(ebk.launches == before, "the plain path launched no kernel")
+        check(torch.equal(out, plain), f"{name}: the step != its plain path")
+        check(bool(torch.isfinite(out).all()) and bool((out.abs() <= 1 + 1e-5).all()),
+              f"{name}: scores are cosines")
+        bag_line = "; ".join(
+            f"{w} bag {tuple(b.shape)} with {int((b >= 0).sum())} ids over {t.shape[0]} rows"
+            for w, (t, b, _, _) in zip(("user", "item"), calls[name]))
+        kern = device_kernels(lambda: step.fn(step.batch),
+                              lambda: [step.fn(step.batch) for _ in range(RECSYS_PROFILE)],
+                              f"the {name} steps")
+        busy = sum(e.device_time_total for e in kern) / RECSYS_PROFILE / 1e3  # ms per step
+        med = float(np.median(secs[name])) * 1e3
+        top = "; ".join(f"{e.key[:50]} {e.device_time_total / RECSYS_PROFILE / 1e3:.3f}ms"
+                        for e in sorted(kern, key=lambda e: -e.device_time_total)[:4])
+        print(f"recsys/{name}: {out.shape[0]} scores, ms/step median {med:.3f} mean "
+              f"{secs[name].mean() * 1e3:.3f} over {len(secs[name])} runs (host clock, "
+              f"synchronised); device busy {busy:.3f} ms/step, idle share {1 - busy / med:.4f}; "
+              f"{bag_line}; each bag equal to plain bit for bit, the step equal to its plain path; "
+              f"per step: {top}")
+    print(f"recsys/launches: embedding_bag {launches} over {n_runs} steps (2 a step)")
+    recsys_small_check(device)
+    row = check_embedding_bag(device, calls, params["user_table"])
+    del calls, steps, step, first, params, out, plain
+    torch.cuda.empty_cache()
+
+    # the other three archs at serve_p99, full published width
+    for name in ("sasrec", "din", "mind"):
+        arch = get_arch(name)
+        t0 = time.perf_counter()
+        params = RECSYS_INIT[name](gen, arch.config)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        step = build_recsys_step(arch, arch.shape("serve_p99"), params, gen, device)
+        step.fn(step.batch)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step.fn(step.batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        check(out.shape == (arch.shape("serve_p99").dims["batch"],)
+              and bool(torch.isfinite(out).all()), f"{name}: serve_p99 scores are finite")
+        print(f"recsys/{name}: serve_p99 at full width ({arch.config.n_items} x "
+              f"{arch.config.embed_dim} table, {recsys.param_count(params)} parameters, set up "
+              f"in {setup:.3f} s): {ms:.3f} ms/step (host clock, synchronised, second run); "
+              f"checksum {float(out.double().sum()):.6f}")
+        del params, step, out
+        torch.cuda.empty_cache()
+    return dict(launches=launches, row=row)
+
+
+# -- phase 10: kernels against their plain versions -----------------------------
 
 
 def _words(rng, shape):
@@ -1339,6 +1602,17 @@ def main() -> int:
     topics = phase("topics", phase_topics, device, cfg, keys, true_topic, n_train, served,
                    static)
     lm = phase("lm", phase_lm, device, served["one_call"]["miss_ids"])
+    # release the LM's weights and KV cache; the kernels phase needs only the
+    # decode path's captured call
+    lm = {k: lm[k] for k in ("launches", "args")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"memory: peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated through "
+          f"phase lm; {torch.cuda.memory_allocated() / 1e9:.3f} GB after releasing the LM")
+    torch.cuda.reset_peak_memory_stats()
+    rec = phase("recsys", phase_recsys, device)
+    print(f"memory: peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated in phase "
+          f"recsys")
     rows = phase("kernels", phase_kernels, device, served, topics, lm)
     lm_launches = lm["launches"]
     del lm
@@ -1367,6 +1641,13 @@ def main() -> int:
     kernels.append(dict(
         name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/kernel.py:90", launches=lm_launches,
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
+    ))
+    r = rec["row"]  # the serve_bulk user bag
+    kernels.append(dict(
+        name="embedding_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag/kernel.py:37", launches=rec["launches"],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
     ))

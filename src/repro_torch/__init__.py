@@ -20,9 +20,14 @@ nothing of it (and nothing of JAX).  Layout mirrors ``repro``:
 * :mod:`repro_torch.kernels.decode_attention` -- GQA decode attention over
   a KV cache and its hand-written CUDA kernel (``csrc/decode_attention.cu``),
   beside its plain PyTorch version;
+* :mod:`repro_torch.kernels.embedding_bag` -- the recsys EmbeddingBag and
+  its hand-written CUDA kernel (``csrc/embedding_bag.cu``), beside its
+  plain PyTorch version;
 * :mod:`repro_torch.models`, :mod:`repro_torch.configs` -- the dense LM
-  (forward, prefill, KV-cache decode) and the LM architectures;
+  (forward, prefill, KV-cache decode), the recsys models' serving path
+  (two-tower, SASRec, DIN, MIND) and their architectures;
 * :mod:`repro_torch.launch.serve` -- the serving CLI's LM back end;
+* :mod:`repro_torch.launch.steps` -- the recsys serve and retrieval steps;
 * :mod:`repro_torch.serving` -- the device cache and the broker.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -1,9 +1,10 @@
-"""Architecture registry: the LM part of ``repro.configs.registry``.
+"""Architecture registry: the LM and recsys parts of
+``repro.configs.registry``.
 
-The five LM architectures with their full published configurations, their
-reduced smoke configurations (CPU-runnable) and the LM input shapes, as the
-reference has them, with torch dtypes.  The GNN and recsys entries are
-named but not ported yet: :func:`get_arch` raises for them.
+The five LM and four recsys architectures with their full published
+configurations, their reduced smoke configurations (CPU-runnable) and their
+input shapes, as the reference has them, with torch dtypes.  The GNN entry
+is named but not ported yet: :func:`get_arch` raises for it.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..models.recsys import DINConfig, MINDConfig, SASRecConfig, TwoTowerConfig
 from ..models.transformer import MoEConfig, TransformerConfig
 
 
@@ -188,18 +190,66 @@ ARCTIC_480B = Arch(
     shapes=LM_SHAPES,
 )
 
+# ---------------------------------------------------------------------------
+# RecSys (shapes shared across the 4 recsys archs)
+# ---------------------------------------------------------------------------
+
+RECSYS_SHAPES = (
+    ShapeSpec("train_batch", "train", {"batch": 65_536}),
+    ShapeSpec("serve_p99", "serve", {"batch": 512}),
+    ShapeSpec("serve_bulk", "serve", {"batch": 262_144}),
+    ShapeSpec("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1_000_000}),
+)
+
+TWO_TOWER = Arch(
+    name="two-tower-retrieval",
+    family="recsys",
+    # [Yi et al. RecSys'19 (YouTube); unverified] 256-dim embeddings,
+    # towers 1024-512-256, dot-product interaction, in-batch softmax.
+    config=TwoTowerConfig(n_users=8_000_000, n_items=4_000_000),
+    smoke_config=TwoTowerConfig(
+        n_users=1000, n_items=500, embed_dim=16, tower_dims=(32, 16)
+    ),
+    shapes=RECSYS_SHAPES,
+)
+
+SASREC = Arch(
+    name="sasrec",
+    family="recsys",
+    # [arXiv:1808.09781] embed 50, 2 blocks, 1 head, seq 50.
+    config=SASRecConfig(n_items=2_000_000),
+    smoke_config=SASRecConfig(n_items=500, embed_dim=16, n_blocks=1, seq_len=10, d_ff=32),
+    shapes=RECSYS_SHAPES,
+)
+
+DIN = Arch(
+    name="din",
+    family="recsys",
+    # [arXiv:1706.06978] embed 18, seq 100, attn MLP 80-40, MLP 200-80.
+    config=DINConfig(n_items=10_000_000),
+    smoke_config=DINConfig(n_items=500, embed_dim=8, seq_len=12, attn_dims=(16, 8), mlp_dims=(32, 16)),
+    shapes=RECSYS_SHAPES,
+)
+
+MIND_ARCH = Arch(
+    name="mind",
+    family="recsys",
+    # [arXiv:1904.08030; unverified] embed 64, 4 interests, 3 routing iters.
+    config=MINDConfig(n_items=4_000_000),
+    smoke_config=MINDConfig(n_items=500, embed_dim=16, n_interests=2, capsule_iters=2, seq_len=10),
+    shapes=RECSYS_SHAPES,
+)
+
 ARCHS: Dict[str, Arch] = {
-    a.name: a for a in (GEMMA2_27B, GEMMA_2B, GLM4_9B, LLAMA4_SCOUT, ARCTIC_480B)
+    a.name: a
+    for a in (
+        GEMMA2_27B, GEMMA_2B, GLM4_9B, LLAMA4_SCOUT, ARCTIC_480B,
+        TWO_TOWER, SASREC, DIN, MIND_ARCH,
+    )
 }
 
 #: the reference's other entries and their families, not ported yet
-NOT_PORTED: Dict[str, str] = {
-    "pna": "gnn",
-    "two-tower-retrieval": "recsys",
-    "sasrec": "recsys",
-    "din": "recsys",
-    "mind": "recsys",
-}
+NOT_PORTED: Dict[str, str] = {"pna": "gnn"}
 
 
 def get_arch(name: str) -> Arch:

@@ -1,3 +1,3 @@
-"""Launchers of the port.  So far only the serving CLI's LM back end
-(:mod:`.serve`); the CLI itself is still to port (ROADMAP.md, Queue 1
-item 9)."""
+"""Launchers of the port: the serving CLI's LM back end (:mod:`.serve`) and
+the recsys family's serve and retrieval steps (:mod:`.steps`); the CLI
+itself is still to port (ROADMAP.md, Queue 1 item 9)."""

@@ -24,7 +24,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.topics, repro_torch.kernels.topic_score, repro_torch.core.fast\n"
         "import repro_torch.kernels.decode_attention, repro_torch.models.common\n"
         "import repro_torch.models.transformer, repro_torch.configs, repro_torch.configs.gemma_2b\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.steps\n"
+        "import repro_torch.kernels.embedding_bag, repro_torch.models.recsys\n"
+        "import repro_torch.configs.two_tower_retrieval, repro_torch.configs.sasrec\n"
+        "import repro_torch.configs.din, repro_torch.configs.mind\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

@@ -22,7 +22,11 @@ bf16, within one bf16 ulp of the plain output (rtol 2**-7) plus 1e-5 of the
 largest output: both compute in f32 and differ there only by their
 summation orders, so their bf16 roundings differ by at most one ulp, and
 near zero by the f32 difference.  A fixed 3e-2 would be the size of the
-outputs themselves at S in the thousands.  This file imports no JAX: the
+outputs themselves at S in the thousands.  The embedding-bag kernel must
+equal its plain version bit for bit (tolerance 0), in f32 and bf16: both
+sum each bag's rows in f32 in slot order and round the same way; only a
+NaN (an id past the table) is compared as NaN, since the card's bf16
+conversions write different NaN bits.  This file imports no JAX: the
 machine with the card has none.
 """
 import numpy as np
@@ -44,6 +48,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain,
 )
 from repro_torch.kernels.decode_attention import kernel as da_kernel  # noqa: E402
+from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_plain  # noqa: E402
+from repro_torch.kernels.embedding_bag import kernel as eb_kernel  # noqa: E402
 from repro_torch.kernels.topic_score import kernel as ts_kernel  # noqa: E402
 from repro_torch.kernels.topic_score import topic_score_op, topic_score_plain  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -488,3 +494,127 @@ def test_decode_steps_on_the_card_go_through_the_kernel(cuda):
         runs[name] = torch.stack(out)
     torch.testing.assert_close(runs["kernel"], runs["plain"], rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(runs["kernel"], runs["cpu"], rtol=1e-4, atol=1e-4)
+
+
+# -- embedding_bag ---------------------------------------------------------------
+
+
+def _bag_case(seed, v, d, b, l, dtype, index_dtype=torch.int32):
+    """A table and (B, L) bags with pads anywhere, all-pad bags, bags of
+    one, a repeated id and the last row."""
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(dtype)
+    bags = rng.integers(-1, v, size=(b, l))
+    if b >= 4 and l >= 2:
+        bags[0] = -1
+        bags[1, 1:] = -1
+        bags[2] = rng.integers(0, v)
+        bags[3, ::2] = v - 1
+    return table, torch.from_numpy(bags).to(index_dtype)
+
+
+def _assert_bag_equal(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if bool(torch.isnan(want).any()):
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    else:
+        assert torch.equal(got, want)
+
+
+BAG_SHAPES = [(50, 128, 8, 5), (200, 256, 16, 9), (33, 128, 4, 3), (97, 18, 12, 6),
+              (97, 50, 12, 6), (97, 64, 12, 6), (300, 256, 1, 4), (500, 300, 40, 40),
+              (500, 8, 7, 100), (1000, 256, 64, 8)]
+
+
+@pytest.mark.parametrize("v,d,b,l", BAG_SHAPES)
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_kernel_equals_plain_on_the_card(cuda, v, d, b, l, mode, dtype):
+    """tests/test_kernels.py's sweep, D off the 32-lane grid (18, 50, 300),
+    B = 1, bags longer than a warp's 32 ids (40, 100), int32 and int64 ids:
+    bit for bit."""
+    for index_dtype in (torch.int32, torch.int64):
+        table, bags = (x.to(cuda) for x in _bag_case(v + d + l, v, d, b, l, dtype, index_dtype))
+        before = eb_kernel.launches
+        got = embedding_bag_op(table, bags, mode)
+        torch.cuda.synchronize()
+        assert eb_kernel.launches == before + 1
+        _assert_bag_equal(got, embedding_bag_plain(table, bags, mode))
+        _assert_bag_equal(got.cpu(), embedding_bag_plain(table.cpu(), bags.cpu(), mode))
+
+
+def test_embedding_bag_kernel_at_a_million_rows_of_256(cuda):
+    """A 1M x 256 f32 table (row offsets past 2**28 elements) and bags of
+    two-tower's lengths: bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    table = torch.randn((1_000_000, 256), generator=gen, device=cuda)
+    for b, l in ((4096, 8), (65_536, 4)):
+        bags = torch.randint(0, 1_000_000, (b, l), generator=gen, device=cuda, dtype=torch.int32)
+        length = torch.randint(1, l + 1, (b, 1), generator=gen, device=cuda)
+        bags = torch.where(torch.arange(l, device=cuda) < length, bags, -1)
+        bags[0, 0] = 999_999
+        for mode in ("sum", "mean"):
+            got = embedding_bag_op(table, bags, mode)
+            assert torch.equal(got, embedding_bag_plain(table, bags, mode))
+
+
+def test_embedding_bag_kernel_ids_past_the_table_give_nan(cuda):
+    table, bags = (x.to(cuda) for x in _bag_case(4, 30, 64, 6, 4, torch.float32))
+    bags[1] = torch.tensor([2, 30, -1, 1 << 30], dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = embedding_bag_op(table.to(dtype), bags, "mean")
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(got[1]).all()) and not bool(torch.isnan(got[2:]).any())
+        _assert_bag_equal(got, embedding_bag_plain(table.to(dtype), bags, "mean"))
+
+
+def test_embedding_bag_kernel_empty_shapes(cuda):
+    table = torch.randn(10, 40, device=cuda)
+    before = eb_kernel.launches
+    assert embedding_bag_op(table, torch.zeros((0, 3), dtype=torch.int32, device=cuda)).shape == (0, 40)
+    assert eb_kernel.launches == before  # B = 0 launches nothing
+    out = embedding_bag_op(table, torch.zeros((5, 0), dtype=torch.int32, device=cuda), "mean")
+    torch.cuda.synchronize()
+    assert out.shape == (5, 40) and bool((out == 0).all())
+
+
+def test_embedding_bag_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    table, bags = (x.to(cuda) for x in _bag_case(1, 30, 32, 5, 4, torch.float32))
+    with pytest.raises(ValueError, match="on"):
+        eb_kernel.embedding_bag(table, bags.cpu())
+    with pytest.raises(TypeError):
+        eb_kernel.embedding_bag(table.double(), bags)
+    with pytest.raises(TypeError):
+        eb_kernel.embedding_bag(table, bags.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        eb_kernel.embedding_bag(table.t(), bags)
+    with pytest.raises(ValueError, match="mode"):
+        eb_kernel.embedding_bag(table, bags, "max")
+
+
+def test_two_tower_steps_on_the_card_go_through_the_kernel(cuda):
+    """Two-tower's serve and retrieval steps at a wide smoke config: two
+    kernel launches a step, equal to the plain path on the card, and within
+    the CPU tests' f32 tolerance of the CPU."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_recsys_step
+    from repro_torch.models import recsys
+
+    arch = get_arch("two-tower-retrieval")
+    arch = dc.replace(arch, smoke_config=dc.replace(arch.smoke_config, embed_dim=256,
+                                                    tower_dims=(64, 32)))
+    params = recsys.init_two_tower(torch.Generator().manual_seed(0), arch.smoke_config)
+    on_card = recsys.params_from_numpy(params, device=cuda)
+    for shape in ("serve_p99", "retrieval_cand"):
+        step = build_recsys_step(arch, arch.shape(shape), on_card,
+                                 torch.Generator().manual_seed(1), cuda, smoke=True)
+        before = eb_kernel.launches
+        got = step.fn(step.batch)
+        torch.cuda.synchronize()
+        assert eb_kernel.launches == before + 2
+        assert torch.equal(got, step.fn(step.batch, use_kernel=False))
+        cpu = build_recsys_step(arch, arch.shape(shape), params,
+                                torch.Generator().manual_seed(1), "cpu", smoke=True)
+        torch.testing.assert_close(got.cpu(), cpu.fn(cpu.batch), rtol=1e-5, atol=1e-6)
