@@ -97,8 +97,12 @@ Phases (any failure raises and exits non-zero):
    (all-zero rows, K = 1, K = 500, ragged B and V, exact ties): scores
    within rtol 1e-4, ``top`` exact or within a near-tie, confidences within
    rtol 1e-4 of the plain softmax of the kernel's scores; timed
-   beside its bound, the plain version and ``torch.matmul`` (the product
-   alone).  ``decode_attention`` against its plain version (2e-6 in f32;
+   beside its bound (the chunk's non-zero counts are counted: the bytes of
+   the dense counts read once, or 2 * nnz * K operations, with the dense
+   product's figure printed beside it), the plain version and
+   ``torch.matmul`` (the product alone); then held and timed on a fully
+   dense chunk of the same shape beside ``torch.matmul``.
+   ``decode_attention`` against its plain version (2e-6 in f32;
    in bf16 one bf16 ulp plus 1e-5 of the largest output, ``decode_close``)
    on the decode path's own last call (one layer's full cache), in bf16
    and cast to f32, gemma2-27b's and glm4-9b's decode geometries at S =
@@ -1291,9 +1295,39 @@ def topic_score_cases(device, real):
     return cases
 
 
+def topic_close(label, got, want, counts):
+    """Holds topic_score's outputs to the plain version's (TOPIC_RTOL; top
+    exact beyond near-ties, conf to the plain epilogue on the kernel's own
+    scores), prints the case and returns its max abs error."""
+    s_k, t_k, c_k = got
+    s_p, t_p, c_p = want
+    check(torch.allclose(s_k, s_p, rtol=TOPIC_RTOL, atol=0.0),
+          f"topic_score scores != plain on the {label} batch")
+    own = torch.softmax(s_k, dim=-1).gather(1, t_k.long()[:, None])[:, 0]
+    check(torch.allclose(c_k, own, rtol=TOPIC_RTOL, atol=0.0),
+          f"topic_score conf != the plain epilogue on its scores on the {label} batch")
+    conf_rel = float(((c_k - c_p).abs() / c_p).max())
+    differ = torch.nonzero(t_k != t_p)[:, 0]
+    s_at_k = s_p[differ, t_k[differ].long()]
+    s_at_p = s_p[differ, t_p[differ].long()]
+    check(bool(((s_at_k - s_at_p).abs() <= TOPIC_RTOL * s_at_p.abs()).all()),
+          f"topic_score top != plain beyond near-ties on the {label} batch")
+    err = max(float((s_k - s_p).abs().max()), float((c_k - c_p).abs().max()))
+    b, k = s_p.shape
+    top2 = s_k.topk(min(2, k), dim=1).values
+    ties = int((top2[:, 0] == top2[:, -1]).sum()) if k > 1 else 0
+    print(f"kernels/topic_score/{label}: within rtol {TOPIC_RTOL} of plain (B={b} "
+          f"V={counts.shape[1]} K={k}, zero rows {int((counts.sum(1) == 0).sum())}, rows "
+          f"with an exact tie for the top {ties}, top differs on {len(differ)} near-tied "
+          f"rows, max abs err {err:.3e}, conf max rel diff to plain {conf_rel:.3e})")
+    return err
+
+
 def check_topic_score(device, topics, flush):
     """topic_score against its plain version on the card; times it on the
-    pipeline's own chunk."""
+    pipeline's own chunk beside its bound (the bytes of the dense counts
+    read once, or 2 * nnz * K operations: the kernel skips zero counts),
+    and on a fully dense chunk of the same shape beside torch.matmul."""
     from repro_torch.kernels.topic_score import kernel as tsk
     from repro_torch.kernels.topic_score.ref import topic_score_plain
 
@@ -1303,34 +1337,15 @@ def check_topic_score(device, topics, flush):
         got = tsk.topic_score(counts, lpt)
         want = topic_score_plain(counts, lpt)
         torch.cuda.synchronize()
-        s_k, t_k, c_k = got
-        s_p, t_p, c_p = want
-        check(torch.allclose(s_k, s_p, rtol=TOPIC_RTOL, atol=0.0),
-              f"topic_score scores != plain on the {label} batch")
-        own = torch.softmax(s_k, dim=-1).gather(1, t_k.long()[:, None])[:, 0]
-        check(torch.allclose(c_k, own, rtol=TOPIC_RTOL, atol=0.0),
-              f"topic_score conf != the plain epilogue on its scores on the {label} batch")
-        conf_rel = float(((c_k - c_p).abs() / c_p).max())
-        differ = torch.nonzero(t_k != t_p)[:, 0]
-        s_at_k = s_p[differ, t_k[differ].long()]
-        s_at_p = s_p[differ, t_p[differ].long()]
-        check(bool(((s_at_k - s_at_p).abs() <= TOPIC_RTOL * s_at_p.abs()).all()),
-              f"topic_score top != plain beyond near-ties on the {label} batch")
-        err = max(float((s_k - s_p).abs().max()), float((c_k - c_p).abs().max()))
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        b, k = s_p.shape
-        top2 = s_k.topk(min(2, k), dim=1).values
-        ties = int((top2[:, 0] == top2[:, -1]).sum()) if k > 1 else 0
-        print(f"kernels/topic_score/{label}: within rtol {TOPIC_RTOL} of plain (B={b} "
-              f"V={counts.shape[1]} K={k}, zero rows {int((counts.sum(1) == 0).sum())}, rows "
-              f"with an exact tie for the top {ties}, top differs on {len(differ)} near-tied "
-              f"rows, max abs err {err:.3e}, conf max rel diff to plain {conf_rel:.3e})")
+        row["max_abs_err"] = max(row["max_abs_err"], topic_close(label, got, want, counts))
     counts, lpt = topics["args"]
     b, v = counts.shape
     k = lpt.shape[1]
+    nnz = int((counts != 0).sum())
     n = 50
     noop = lambda: None  # noqa: E731
-    flops = 2.0 * b * v * k
+    flops = 2.0 * nnz * k
+    dense_flops = 2.0 * b * v * k
     nbytes = 4.0 * (b * v + v * k + b * k + 2 * b)
     row.update(
         ms=time_device(lambda: tsk.topic_score(counts, lpt), n, flush, noop),
@@ -1339,10 +1354,25 @@ def check_topic_score(device, topics, flush):
         bound_ms=max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
         bound_by="operations" if flops / F32_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes",
     )
-    print(f"kernels/topic_score/real: device {row['ms']:.6f} ms/launch (L2 flushed), "
-          f"{flops / (row['ms'] * 1e-3) / 1e9:.1f} GFLOP/s; plain {row['plain_ms']:.6f} ms; torch.matmul "
-          f"(the product alone, no TF32) {row['library_ms']:.6f} ms; bound {row['bound_ms']:.6f} "
-          f"ms by {row['bound_by']} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+    print(f"kernels/topic_score/real: nnz {nnz} of {b * v} counts (density {nnz / (b * v):.6f}); "
+          f"device {row['ms']:.6f} ms/launch (L2 flushed), {nbytes / row['ms'] / 1e6:.1f} GB/s; "
+          f"plain {row['plain_ms']:.6f} ms; torch.matmul (the product alone, no TF32) "
+          f"{row['library_ms']:.6f} ms; bound {row['bound_ms']:.6f} ms by {row['bound_by']} "
+          f"({nbytes / 1e6:.3f} MB at {HBM_BYTES_PER_S / 1e12} TB/s; {flops / 1e9:.6f} GFLOP "
+          f"over the non-zero counts, {flops / F32_FLOP_PER_S * 1e3:.6f} ms at "
+          f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s); the dense-product figure {dense_flops / 1e9:.3f} "
+          f"GFLOP, {dense_flops / F32_FLOP_PER_S * 1e3:.6f} ms")
+    # the trade's cost on record: every count of a chunk of the real shape non-zero
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    dense = torch.randint(1, 4, (b, v), generator=gen, device=device).to(torch.float32)
+    err = topic_close("dense", tsk.topic_score(dense, lpt), topic_score_plain(dense, lpt), dense)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    dense_ms = time_device(lambda: tsk.topic_score(dense, lpt), 10, flush, noop)
+    dense_lib = time_device(lambda: torch.matmul(dense, lpt), 10, flush, noop)
+    print(f"kernels/topic_score/dense: B={b} V={v} K={k}, every count non-zero: device "
+          f"{dense_ms:.6f} ms/launch (L2 flushed); torch.matmul {dense_lib:.6f} ms; the dense "
+          f"product's operation bound {dense_flops / F32_FLOP_PER_S * 1e3:.6f} ms")
+    del dense
     return row
 
 

@@ -11,7 +11,7 @@
 //   s[pos]  = -1e30 unless pos <= cur (and pos > cur - window)
 //   out     = sum_pos softmax(s)[pos] * v[pos]         f32, cast to q's type
 //
-// with q (B, Hkv, G, d), k and v (B, S, Hkv, d) in f32 or bf16 and cur an
+// with q (B, Hkv, G, d), k and v (B, S, Hkv, d) in bf16 or f32 and cur an
 // int32 scalar read on the device (the cache's fill level), so a decode
 // step never waits on the host.
 //
@@ -19,42 +19,72 @@
 // and used for all G heads of its group: at gemma-2b's decode shape (B =
 // 64, Hkv = 1, G = 8, d = 256, S = 32768, bf16) that is 2.15 GB per layer,
 // 0.64 ms at 3.35 TB/s.  A key row costs 4 * d bytes (K and V in bf16) and
-// brings 4 * G * d flops: G = 8 flops per byte, under the 20 per byte at
-// which even plain f32 FMAs (67 TFLOP/s) would be the limit.
+// brings 4 * G * d flops: G = 8 flops per byte.  On the CUDA cores those
+// f32 FMAs, with a bf16 unpack per element and the shared-memory traffic
+// around them, take more instruction slots than the bytes leave time for;
+// on the tensor cores 8 flops per byte is ~27 TFLOP/s of the ~990 there.
 //
-// Design (simple first; wgmma, TMA and a pipelined ring are later work):
-//  * Flash-decoding.  B * Hkv is only 64 at gemma-2b's decode shape, against
-//    132 SMs, so S is split into n_split chunks (chosen by the wrapper from
-//    the kernel's occupancy, so the blocks fill whole waves), one block of
-//    256 threads per (chunk, b, h).
-//    A block sweeps only the positions of its chunk that the mask keeps
-//    (pos <= cur and, with a window, pos > cur - window): blocks wholly past
-//    cur, or wholly before the window, read nothing.  Masked positions
-//    weigh exp(-1e30 - m) = 0 exactly in the reference, so skipping them is
-//    the same function.  When the mask keeps no position at all (a window
-//    that lies past the cache), the reference's softmax is uniform over S,
-//    and the blocks then sweep every position with the score -1e30.
-//  * The GQA reuse of the TPU kernel's (G, bs) dot: each tile of 32 keys
-//    and values is staged in shared memory once, in the inputs' type, and
-//    serves all G query heads (q in f32).  One thread per (head, key) takes
-//    the dot product, sixteen bytes of k per shared-memory read, converted
-//    to f32 at use (bf16 products are exact in f32); one warp per head runs
-//    the online softmax (running max m, sum l) with the precise expf; each
-//    thread keeps up to 16 of the G x d accumulators in registers: one
-//    column j of d and the heads g0, g0 + 256 / d, ..., so a value read from
-//    shared memory serves each of them.
-//  * The copies overlap the arithmetic: tiles arrive by cp.async (16 bytes,
-//    global to shared memory without registers) into two buffers, tile
-//    i + 1 loading while tile i is computed.  K rows are padded by 16 bytes
-//    so the 8 keys of each quarter-warp's reads fall in distinct banks.
-//  * What it takes: d a divisor of 256 whose rows are a multiple of 16
-//    bytes, G * d <= 4096, K and V 16-byte aligned.  Every LM of the
-//    registry (head_dim 16, 128 or 256, G * d <= 2048) and every layer
-//    slice of a cache is; the entry point refuses anything else.
-//  * A second launch merges each (b, h)'s partial (m, l, acc) over the
-//    chunks: weights exp(m_i - M), out = sum w_i acc_i / max(sum w_i l_i,
-//    1e-30), cast to q's type with round-to-nearest-even.
-//  * Precise expf and tanhf, no fast-math: the f32 sweep holds 2e-6.
+// Both paths use flash-decoding: B * Hkv is only 64 at gemma-2b's decode
+// shape, against 132 SMs, so S is split into n_split chunks (the wrapper
+// sizes the split from the kernel's occupancy, so the blocks fill whole
+// waves), one block per (chunk, b, h).  A block sweeps only the positions
+// of its chunk that the mask keeps (pos <= cur and, with a window, pos >
+// cur - window): blocks wholly past cur, or wholly before the window, read
+// nothing.  Masked positions weigh exp(-1e30 - m) = 0 exactly in the
+// reference, so skipping them is the same function.  When the mask keeps
+// no position at all (a window that lies past the cache), the reference's
+// softmax is uniform over S, and the blocks then sweep every position with
+// the score -1e30.  A second launch merges each (b, h)'s partial (m, l,
+// acc) states: weights exp(m_i - M), out = sum w_i acc_i / max(sum w_i l_i,
+// 1e-30), cast to q's type with round-to-nearest-even.  Precise expf and
+// tanhf, no fast-math.
+//
+// bf16 (the decode path's type), decode_tc_kernel<D>:
+//  * Both products on the tensor cores, mma.sync m16n8k16 bf16 -> f32.
+//    q.k: the rows of A are query heads, eight a group (rows 8-15 zero), B
+//    the keys, read from shared memory by ldmatrix; bf16 products are
+//    exact in f32, so only the order of the f32 sums differs from the
+//    reference.  p.v: the reference keeps p in f32, so p goes in as two
+//    bf16 halves, hi = bf16(p) and lo = bf16(p - hi) (~16 bits of p): the
+//    A rows of head g are hi and row g + 8 lo, so the one mma that the
+//    group's padding leaves free takes both, and a thread adds its two
+//    accumulator rows at the end.  V is B, read by ldmatrix.trans.
+//  * The online softmax runs on the mma's accumulator fragments: a lane
+//    holds four scores of one head, the row max comes from two quad
+//    shuffles, the row sum stays a lane's partial to the end.  Scores never
+//    go through shared memory.
+//  * Copies without per-thread instructions: one producer warp starts 1-D
+//    bulk copies (cp.async.bulk, completing on an mbarrier) into a ring of
+//    `stages` stages, ~200 KB: with one block an SM, two or more stages
+//    (>= 130 KB) are in flight while the consumers read one.  A copy moves
+//    a unit of 1 KB of consecutive positions (two rows at d = 256; with Hkv
+//    > 1 the rows of a unit are strided, one copy a row): at one 512-byte
+//    row a copy the copy engine, not HBM, set the rate.  Units are padded
+//    by 16 bytes, and an ldmatrix operand takes one position from each of
+//    eight units, so its eight rows fall in distinct banks.  Each stage
+//    has a full barrier (the producer's expected bytes) and an empty one
+//    (one arrival per consumer warp); no __syncthreads in the loop.
+//  * Four consumer warps split a stage's keys (key slots) and, when G is
+//    wide, the head groups (head slots): each warp keeps its own (m, l,
+//    acc) over its keys and writes it as a partial state of its own, so
+//    the merge launch combines n_split * key_slots partials and the block
+//    never synchronises after its start.  A warp holds up to
+//    max(1, 128 / d) head groups' accumulators and q fragments.
+//  * The ring is zeroed at the start when the block's last tile is
+//    partial and lands in a stage no full tile filled before, so the rows
+//    the mma reads past the keys are finite (they weigh 0).  At d = 8 the
+//    q.k k-step's columns 8-15 are zero registers, not shared memory.
+//
+// f32, decode_split_kernel: the CUDA-core path (the tensor cores would
+// round f32 to TF32, and this path holds 2e-6): 256 threads a block, tiles
+// of 32 keys staged by cp.async into two buffers, one thread per (head,
+// key) for the dot products, one warp per head for the online softmax,
+// and each thread up to 16 of the G x d accumulators in registers.
+//
+// What both take: d a divisor of 256 whose rows are a multiple of 16
+// bytes, G * d <= 4096, K and V 16-byte aligned.  Every LM of the registry
+// (head_dim 16, 128 or 256, G * d <= 2048) and every layer slice of a
+// cache is; the entry point refuses anything else.
 //
 // The entry point returns cudaGetLastError() after its launches.
 
@@ -68,22 +98,24 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;    // keys per shared-memory tile: one per lane of a warp
-constexpr int kMaxAcc = 16;  // accumulators per thread: G * d <= kThreads * kMaxAcc
+constexpr int kTile = 32;    // f32 path: keys per shared-memory tile, one per lane
+constexpr int kMaxAcc = 16;  // f32 path: accumulators a thread, G * d <= kThreads * kMaxAcc
 constexpr float kMasked = -1e30f;  // the reference's score for a masked position
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kTcWarps = 4;  // bf16 path: consumer warps; one producer warp more
+constexpr int kTcThreads = (kTcWarps + 1) * 32;
+constexpr int kTcMinStages = 2;
+constexpr int kTcMaxStages = 16;
+
+using bf16 = __nv_bfloat16;
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -96,6 +128,27 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
   return x;
 }
+
+// The positions of the chunk [split * chunk, +chunk) that the block sweeps:
+// [start, end), and whether the mask keeps any position of S at all.
+struct Span {
+  int start, end;
+  bool any;
+  __device__ Span(long long cur, int s_len, int window, int split, int chunk) {
+    const long long lo_v = window > 0 ? (cur - window + 1 > 0 ? cur - window + 1 : 0) : 0;
+    const long long hi_v = cur < s_len - 1 ? cur : s_len - 1;
+    any = lo_v <= hi_v;
+    start = split * chunk;
+    end = start + chunk < s_len ? start + chunk : s_len;
+    if (any) {
+      if (start < lo_v) start = static_cast<int>(lo_v);
+      if (end > hi_v + 1) end = static_cast<int>(hi_v + 1);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core split kernel
 
 // 16 bytes from global to shared memory without passing through registers;
 // with valid = false the 16 bytes are filled with zeros and nothing is read.
@@ -110,35 +163,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// 16 bytes of T as floats
-__device__ __forceinline__ void unpack(uint4 raw, float* dst, float) {
-  dst[0] = __uint_as_float(raw.x);
-  dst[1] = __uint_as_float(raw.y);
-  dst[2] = __uint_as_float(raw.z);
-  dst[3] = __uint_as_float(raw.w);
-}
-__device__ __forceinline__ void unpack(uint4 raw, float* dst, __nv_bfloat16) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // the low half is the first element
-    dst[2 * i] = __uint_as_float(w[i] << 16);
-    dst[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
-  }
-}
-
-// Shared memory of the split kernel: q in f32 (g x d); then, in the inputs'
-// type T, two K tiles (kTile rows of pitch kp) and two V tiles (kTile x d);
-// then, 16-byte aligned, the f32 scores (g x kTile) and m, l, alpha.  The K
-// rows are padded by 16 bytes, so each quarter-warp's 16-byte reads of 8
-// keys fall in distinct banks.  At most ~150 KB for the shapes taken.
+// Shared memory of the split kernel: q (g x d); two K tiles (kTile rows of
+// pitch kp) and two V tiles (kTile x d); the scores (g x kTile) and m, l,
+// alpha.  The K rows are padded by 16 bytes, so each quarter-warp's
+// 16-byte reads of 8 keys fall in distinct banks.
 struct SplitSmem {
   int kp;
   size_t tiles_bytes, total;
-  __host__ __device__ SplitSmem(int g, int d, int elem) {
-    kp = d + 16 / elem;
-    tiles_bytes = sizeof(float) * static_cast<size_t>(g) * d +
-                  static_cast<size_t>(elem) * 2 * kTile * (kp + d);
-    tiles_bytes = (tiles_bytes + 15) / 16 * 16;
+  __host__ __device__ SplitSmem(int g, int d) {
+    kp = d + 4;
+    tiles_bytes = sizeof(float) * (static_cast<size_t>(g) * d + 2 * kTile * (kp + d));
     total = tiles_bytes + sizeof(float) * (static_cast<size_t>(g) * kTile + 3 * g);
   }
 };
@@ -148,19 +182,18 @@ struct SplitSmem {
 // part_acc is (B*Hkv, n_split, G, d).  ACC (a power of two, G * d <=
 // kThreads * ACC) is the accumulators a thread holds: no instruction is
 // issued for one it does not.
-template <typename T, int ACC>
+template <int ACC>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ cur_ptr, int s_len,
+decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const int* __restrict__ cur_ptr, int s_len,
                     int hkv, int g, int d, float scale, float cap, int window, int chunk,
                     float* __restrict__ part_ml, float* __restrict__ part_acc) {
-  constexpr int kVec = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
-  const SplitSmem lay(g, d, sizeof(T));
+  const SplitSmem lay(g, d);
   const int kp = lay.kp;
   float* q_s = reinterpret_cast<float*>(smem);  // g * d
-  T* kb = reinterpret_cast<T*>(q_s + g * d);    // 2 * kTile * kp
-  T* vb = kb + 2 * kTile * kp;             // 2 * kTile * d
+  float* kb = q_s + g * d;                       // 2 * kTile * kp
+  float* vb = kb + 2 * kTile * kp;               // 2 * kTile * d
   float* p_s = reinterpret_cast<float*>(smem + lay.tiles_bytes);  // g * kTile
   float* m_s = p_s + g * kTile;            // g: running max
   float* l_s = m_s + g;                    // g: running sum
@@ -171,20 +204,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = pair / hkv, h = pair % hkv;
   const int split = blockIdx.x, n_split = gridDim.x;
   const int gd = g * d;
-  const long long cur = *cur_ptr;
+  const Span span(*cur_ptr, s_len, window, split, chunk);
+  const int start = span.start, end = span.end;
 
-  // the positions the mask keeps: [lo_v, hi_v]
-  const long long lo_v = window > 0 ? (cur - window + 1 > 0 ? cur - window + 1 : 0) : 0;
-  const long long hi_v = cur < s_len - 1 ? cur : s_len - 1;
-  const bool any = lo_v <= hi_v;
-  int start = split * chunk;
-  int end = start + chunk < s_len ? start + chunk : s_len;
-  if (any) {
-    if (start < lo_v) start = static_cast<int>(lo_v);
-    if (end > hi_v + 1) end = static_cast<int>(hi_v + 1);
-  }
-
-  for (int e = tid; e < gd; e += kThreads) q_s[e] = to_f(q[static_cast<size_t>(pair) * gd + e]);
+  for (int e = tid; e < gd; e += kThreads) q_s[e] = q[static_cast<size_t>(pair) * gd + e];
   if (tid < g) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -197,11 +220,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // past `end` are zeros
   auto issue = [&](int t0, int buf) {
     const int n = end - t0 < kTile ? end - t0 : kTile;
-    T* kd = kb + buf * kTile * kp;
-    T* vd = vb + buf * kTile * d;
-    const int vpr = d / kVec;
+    float* kd = kb + buf * kTile * kp;
+    float* vd = vb + buf * kTile * d;
+    const int vpr = d / 4;
     for (int e = tid; e < kTile * vpr; e += kThreads) {
-      const int t = e / vpr, c = (e % vpr) * kVec;
+      const int t = e / vpr, c = (e % vpr) * 4;
       const bool ok = t < n;
       const size_t off =
           ((static_cast<size_t>(b) * s_len + (ok ? t0 + t : 0)) * hkv + h) *
@@ -223,33 +246,27 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* ks = kb + buf * kTile * kp;
-    const T* vs = vb + buf * kTile * d;
+    const float* ks = kb + buf * kTile * kp;
+    const float* vs = vb + buf * kTile * d;
 
     for (int e = tid; e < g * kTile; e += kThreads) {
       const int gi = e / kTile, t = e % kTile;
       float sc = -INFINITY;  // past the chunk: no weight at all
-      if (t < n) {  // 16 bytes of k a read; two chains of sums
+      if (t < n) {  // 16 bytes of k a read
         const float4* q4 = reinterpret_cast<const float4*>(q_s + gi * d);
-        const uint4* k4 = reinterpret_cast<const uint4*>(ks + t * kp);
-        float dots[2] = {0.f, 0.f};
+        const float4* k4 = reinterpret_cast<const float4*>(ks + t * kp);
+        float dot = 0.f;
 #pragma unroll 4
-        for (int i = 0; i < d / kVec; ++i) {
-          float ka[kVec];
-          unpack(k4[i], ka, T());
-#pragma unroll
-          for (int j = 0; j < kVec; j += 4) {
-            const float4 qa = q4[i * (kVec / 4) + j / 4];
-            float& acc_dot = dots[(j / 4) % 2];
-            acc_dot = fmaf(qa.x, ka[j], acc_dot);
-            acc_dot = fmaf(qa.y, ka[j + 1], acc_dot);
-            acc_dot = fmaf(qa.z, ka[j + 2], acc_dot);
-            acc_dot = fmaf(qa.w, ka[j + 3], acc_dot);
-          }
+        for (int i = 0; i < d / 4; ++i) {
+          const float4 ka = k4[i], qa = q4[i];
+          dot = fmaf(qa.x, ka.x, dot);
+          dot = fmaf(qa.y, ka.y, dot);
+          dot = fmaf(qa.z, ka.z, dot);
+          dot = fmaf(qa.w, ka.w, dot);
         }
-        sc = (dots[0] + dots[1]) * scale;
+        sc = dot * scale;
         if (cap > 0.f) sc = cap * tanhf(sc / cap);
-        if (!any) sc = kMasked;
+        if (!span.any) sc = kMasked;
       }
       p_s[e] = sc;
     }
@@ -280,8 +297,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < ACC; ++r)
       if (g0 + r * gstep < g) acc[r] *= a_s[g0 + r * gstep];
     for (int t = 0; t < kTile; t += 4) {
-      const float v0 = to_f(vs[t * d + j]), v1 = to_f(vs[(t + 1) * d + j]);
-      const float v2 = to_f(vs[(t + 2) * d + j]), v3 = to_f(vs[(t + 3) * d + j]);
+      const float v0 = vs[t * d + j], v1 = vs[(t + 1) * d + j];
+      const float v2 = vs[(t + 2) * d + j], v3 = vs[(t + 3) * d + j];
 #pragma unroll
       for (int r = 0; r < ACC; ++r) {
         const int gi = g0 + r * gstep;
@@ -313,42 +330,403 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// One block per b * hkv + h: merges the chunks' partial states.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_merge_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-                    int n_split, int g, int d, T* __restrict__ out) {
-  extern __shared__ float w_s[];  // n_split * g weights, then g denominators
-  float* den_s = w_s + n_split * g;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int pair = blockIdx.x;
-  const int gd = g * d;
-  const float* ml = part_ml + static_cast<size_t>(pair) * n_split * 2 * g;
-  for (int gi = warp; gi < g; gi += kWarps) {
-    float m = -INFINITY;
-    for (int i = lane; i < n_split; i += 32) m = fmaxf(m, ml[i * 2 * g + gi]);
-    m = warp_max(m);
-    float l = 0.f;
-    for (int i = lane; i < n_split; i += 32) {
-      const float w = expf(ml[i * 2 * g + gi] - m);  // an empty chunk: m_i = -inf, w = 0
-      w_s[i * g + gi] = w;
-      l = fmaf(w, ml[i * 2 * g + g + gi], l);
-    }
-    l = warp_sum(l);
-    if (lane == 0) den_s[gi] = fmaxf(l, 1e-30f);
-  }
-  __syncthreads();
-  const float* acc = part_acc + static_cast<size_t>(pair) * n_split * gd;
-  for (int e = tid; e < gd; e += kThreads) {
-    const int gi = e / d;
-    float a = 0.f;
-    for (int i = 0; i < n_split; ++i) a = fmaf(w_s[i * g + gi], acc[static_cast<size_t>(i) * gd + e], a);
-    out[static_cast<size_t>(pair) * gd + e] = from_f<T>(a / den_s[gi]);
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel fed by a bulk-copy ring
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spins until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
   }
 }
 
+// `bytes` (a multiple of 16) from global to shared memory, both 16-byte
+// aligned, by the copy engine; completes its bytes on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// c += a (16 x 16, row-major bf16) * b (16 x 8, column-major bf16), f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// The ring's copy unit: kUnitRowBytes of consecutive positions (1 KB: the
+// copy engine reaches the HBM rate from ~1 KB a copy, not at one 512-byte
+// row a copy), then 16 bytes of padding.  A consumer warp takes eight units
+// of K and eight of V a stage.
+constexpr int kUnitRowBytes = 1024;
+constexpr int kUnitBytes = kUnitRowBytes + 16;
+
+// Shapes of the tensor-core kernel for head width D: a row's bytes, the
+// positions of a copy unit, the keys a consumer warp takes a stage (eight
+// units), the mma k-steps of q.k, the 8-column n-tiles of the output, and
+// the head groups (eight heads each) a warp can hold: 4 * kNt + 2 * kSteps
+// + 2 registers a group (at most 162, at D = 256), and G * D <= 4096 needs
+// at most 512 / D groups, so four head slots suffice.
+//
+// Bank layout: unit u of a stage part starts at u * kUnitBytes, a multiple
+// of 16 bytes that is 16 more than a multiple of 128, so the same column
+// of position i in eight consecutive units falls in eight distinct 16-byte
+// bank groups.  An 8 x 8 ldmatrix operand is therefore taken from the
+// eight positions i + kR * u, u = 0..7 (one per unit), and a 16-key mma
+// step j from i = 2 j and 2 j + 1: keys are summed in that order, the same
+// order for q.k and p.v, which is the same sum.
+template <int D>
+struct Tc {
+  static constexpr int kRow = 2 * D;
+  static constexpr int kR = kUnitRowBytes / kRow;
+  static constexpr int kKeys = 8 * kR;
+  static constexpr int kSteps = D < 16 ? 1 : D / 16;
+  static constexpr int kNt = D / 8;
+  static constexpr int kMaxGroups = D >= 128 ? 1 : 128 / D;
+};
+
+__host__ __device__ constexpr int tc_max_groups(int d) { return d >= 128 ? 1 : 128 / d; }
+__host__ __device__ constexpr int tc_stage_bytes(int key_slots) {
+  return 2 * 8 * key_slots * kUnitBytes;
+}
+int tc_stage_keys(int d, int head_slots) {
+  return kTcWarps / head_slots * 8 * (kUnitRowBytes / (2 * d));
+}
+size_t tc_smem_bytes(int stages, int head_slots) {
+  return stages * (static_cast<size_t>(tc_stage_bytes(kTcWarps / head_slots)) +
+                   2 * sizeof(uint64_t));
+}
+
+// One block per (chunk of S, b * hkv + h).  Warp kTcWarps is the producer;
+// consumer warp w is head slot w % head_slots and key slot w / head_slots,
+// and writes partial state split * key_slots + key slot: part_ml is
+// (B*Hkv, n_part, 2, G) and part_acc (B*Hkv, n_part, G, D), n_part =
+// n_split * key_slots.  A stage holds key_slots * Tc<D>::kKeys keys.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int* __restrict__ cur_ptr, int s_len, int hkv,
+                 int g, float scale, float cap, int window, int chunk, int stages,
+                 int head_slots, float* __restrict__ part_ml, float* __restrict__ part_acc) {
+  using S = Tc<D>;
+  constexpr int kR = S::kR, kRow = S::kRow;
+  const int key_slots = kTcWarps / head_slots;
+  const int stage_keys = key_slots * S::kKeys;
+  const int stage_bytes = tc_stage_bytes(key_slots);
+  const int part_bytes = stage_bytes / 2;  // the K part, then the V part
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + static_cast<size_t>(stages) * stage_bytes);
+  uint64_t* empty = full + stages;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int pair = blockIdx.y;
+  const int b = pair / hkv, h = pair % hkv;
+  const int split = blockIdx.x;
+  const Span span(*cur_ptr, s_len, window, split, chunk);
+  const int n_keys = span.end > span.start ? span.end - span.start : 0;
+  const int n_tiles = (n_keys + stage_keys - 1) / stage_keys;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kTcWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (n_keys % stage_keys != 0 && n_tiles <= stages) {
+    // the last tile is partial and lands in a stage no tile filled before:
+    // the rows past its keys, which weigh 0, must be finite
+    uint4* z = reinterpret_cast<uint4*>(smem);
+    const int n16 = stages * stage_bytes / 16;
+    for (int i = tid; i < n16; i += kTcThreads) z[i] = make_uint4(0, 0, 0, 0);
+    // the zeros are ordered before the copy engine's writes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kTcWarps) {  // the producer: every tile's K and V rows, a unit a copy
+    const size_t pos_stride = static_cast<size_t>(hkv) * D;  // elements between positions
+    const size_t base = (static_cast<size_t>(b) * s_len * hkv + h) * D;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % stages;
+      if (it >= stages) mbar_wait(&empty[st], (it / stages - 1) & 1);
+      const int t0 = span.start + it * stage_keys;
+      const int n = span.end - t0 < stage_keys ? span.end - t0 : stage_keys;
+      if (lane == 0) mbar_arrive_expect_tx(&full[st], 2u * n * kRow);
+      __syncwarp();
+      unsigned char* kd = smem + static_cast<size_t>(st) * stage_bytes;
+      for (int u = lane; u * kR < n; u += 32) {
+        const int r0 = u * kR, nr = n - r0 < kR ? n - r0 : kR;
+        unsigned char* ku = kd + u * kUnitBytes;
+        const size_t off = base + static_cast<size_t>(t0 + r0) * pos_stride;
+        if (hkv == 1) {  // the unit's positions are contiguous
+          bulk_copy(ku, k + off, nr * kRow, &full[st]);
+          bulk_copy(ku + part_bytes, v + off, nr * kRow, &full[st]);
+        } else {
+          for (int i = 0; i < nr; ++i) {
+            bulk_copy(ku + i * kRow, k + off + i * pos_stride, kRow, &full[st]);
+            bulk_copy(ku + part_bytes + i * kRow, v + off + i * pos_stride, kRow, &full[st]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  const int hs = warp % head_slots, ks = warp / head_slots;
+  const int key0 = ks * S::kKeys;  // this warp's first key of a stage
+  const int n_groups = (g + 7) / 8;
+  const int row = lane / 4, quad = lane % 4;
+
+  // q as the A fragments of q.k: a0 and a2 of each k-step (rows 8-15 zero)
+  uint32_t qa[S::kMaxGroups][S::kSteps][2];
+  const uint32_t* q32 = reinterpret_cast<const uint32_t*>(q + static_cast<size_t>(pair) * g * D);
+#pragma unroll
+  for (int j = 0; j < S::kMaxGroups; ++j) {
+    const int head = (hs + head_slots * j) * 8 + row;
+#pragma unroll
+    for (int kk = 0; kk < S::kSteps; ++kk) {
+      const int col = kk * 16 + 2 * quad;
+      const bool ok = head < g;
+      qa[j][kk][0] = ok && col < D ? q32[(head * D + col) / 2] : 0u;
+      qa[j][kk][1] = ok && col + 8 < D ? q32[(head * D + col + 8) / 2] : 0u;
+    }
+  }
+  float o[S::kMaxGroups][S::kNt][4];
+  float m[S::kMaxGroups], l[S::kMaxGroups];
+#pragma unroll
+  for (int j = 0; j < S::kMaxGroups; ++j) {
+    m[j] = -INFINITY;
+    l[j] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < S::kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][nt][e] = 0.f;
+  }
+
+  // this lane's ldmatrix row (bytes from the warp's first unit of a part):
+  // K by keys i = 2 j (lanes 0-15) and 2 j + 1 (16-31) of units 0-7, at
+  // columns 0-7 and 8-15 of a k-step; V transposed by keys 2 j (lanes 0-7,
+  // 16-23) and 2 j + 1 (8-15, 24-31) at the columns of two n-tiles
+  const int unit = (lane & 7) * kUnitBytes;
+  const int k_lane = D < 16 ? unit + ((lane >> 3) & 1) * kRow
+                            : unit + ((lane >> 4) & 1) * kRow + ((lane >> 3) & 1) * 16;
+  const int v_lane = unit + ((lane >> 3) & 1) * kRow + (lane >> 4) * 16;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % stages;
+    mbar_wait(&full[st], (it / stages) & 1);
+    const int t0 = span.start + it * stage_keys;
+    const int n = span.end - t0 < stage_keys ? span.end - t0 : stage_keys;
+    const uint32_t warp_units = smem_u32(smem + static_cast<size_t>(st) * stage_bytes) +
+                                ks * 8 * kUnitBytes;
+    for (int jj = 0; jj < kR / 2 && key0 + 2 * jj < n; ++jj) {  // warp-uniform
+      const uint32_t k_base = warp_units + k_lane + 2 * jj * kRow;
+      const uint32_t v_base = warp_units + part_bytes + v_lane + 2 * jj * kRow;
+#pragma unroll
+      for (int j = 0; j < S::kMaxGroups; ++j) {
+        if (hs + head_slots * j >= n_groups) break;  // warp-uniform
+        float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        if constexpr (D < 16) {  // columns 8-15 of the k-step are zero in q
+          uint32_t bk[2];
+          ldsm_x2(bk, k_base);
+          mma_bf16(sc[0], qa[j][0][0], 0u, 0u, 0u, bk[0], 0u);
+          mma_bf16(sc[1], qa[j][0][0], 0u, 0u, 0u, bk[1], 0u);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < S::kSteps; ++kk) {
+            uint32_t bk[4];
+            ldsm_x4(bk, k_base + 32 * kk);
+            mma_bf16(sc[0], qa[j][kk][0], 0u, qa[j][kk][1], 0u, bk[0], bk[1]);
+            mma_bf16(sc[1], qa[j][kk][0], 0u, qa[j][kk][1], 0u, bk[2], bk[3]);
+          }
+        }
+        // head `row` of the group at key 2 jj + nt + kR (2 quad + e) of the
+        // warp's units: sc[nt][e]
+        float mx = m[j];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = sc[nt][e] * scale;
+            if (cap > 0.f) x = cap * tanhf(x / cap);
+            if (!span.any) x = kMasked;
+            if (key0 + 2 * jj + nt + kR * (2 * quad + e) >= n) x = -INFINITY;  // no weight
+            sc[nt][e] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));  // finite: key 2 jj is kept
+        const float alpha = expf(m[j] - mx);
+        m[j] = mx;
+        uint32_t pa[4];  // a0, a1, a2, a3: n-tile 0 hi, lo; n-tile 1 hi, lo
+        float ps = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float p0 = expf(sc[nt][0] - mx), p1 = expf(sc[nt][1] - mx);
+          ps += p0 + p1;
+          const bf16 h0 = __float2bfloat16_rn(p0), h1 = __float2bfloat16_rn(p1);
+          pa[2 * nt] = pack_bf16(h0, h1);
+          pa[2 * nt + 1] = pack_bf16(__float2bfloat16_rn(p0 - __bfloat162float(h0)),
+                                     __float2bfloat16_rn(p1 - __bfloat162float(h1)));
+        }
+        l[j] = l[j] * alpha + ps;
+#pragma unroll
+        for (int nt = 0; nt < S::kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[j][nt][e] *= alpha;
+        if constexpr (S::kNt == 1) {
+          uint32_t bv[2];
+          ldsm_x2_trans(bv, v_base);
+          mma_bf16(o[j][0], pa[0], pa[1], pa[2], pa[3], bv[0], bv[1]);
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < S::kNt; nt += 2) {
+            uint32_t bv[4];
+            ldsm_x4_trans(bv, v_base + 16 * nt);
+            mma_bf16(o[j][nt], pa[0], pa[1], pa[2], pa[3], bv[0], bv[1]);
+            mma_bf16(o[j][nt + 1], pa[0], pa[1], pa[2], pa[3], bv[2], bv[3]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // the warp's reads of the stage are done
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  const int n_part = gridDim.x * key_slots;
+  const size_t part = static_cast<size_t>(pair) * n_part + split * key_slots + ks;
+  float* ml = part_ml + part * 2 * g;
+  float* pacc = part_acc + part * g * D;
+#pragma unroll
+  for (int j = 0; j < S::kMaxGroups; ++j) {
+    const int head = (hs + head_slots * j) * 8 + row;
+    float lj = l[j];
+    lj += __shfl_xor_sync(kFull, lj, 1);
+    lj += __shfl_xor_sync(kFull, lj, 2);
+    if (head >= g) continue;
+    if (quad == 0) {
+      ml[head] = m[j];
+      ml[g + head] = lj;
+    }
+    float* dst = pacc + static_cast<size_t>(head) * D + 2 * quad;
+#pragma unroll
+    for (int nt = 0; nt < S::kNt; ++nt)  // rows g and g + 8 are p's two halves
+      *reinterpret_cast<float2*>(dst + nt * 8) =
+          make_float2(o[j][nt][0] + o[j][nt][2], o[j][nt][1] + o[j][nt][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+
+// Merges the n_part partial states of each (b, h) pair: block (x, pair)
+// writes output elements x * kThreads .. + kThreads of the pair's G x d,
+// one a thread, after a warp a head of them has computed the head's max M
+// and denominator.  (Spread over G * d / 256 blocks a pair, the merge is
+// not bound by one block's load latency.)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_merge_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+                    int n_part, int g, int d, T* __restrict__ out) {
+  __shared__ float m_s[kThreads + 1], den_s[kThreads + 1];  // the block's heads
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int pair = blockIdx.y;
+  const int gd = g * d;
+  const int e0 = blockIdx.x * kThreads;
+  const int h0 = e0 / d;
+  const int h1 = (e0 + kThreads - 1) / d < g - 1 ? (e0 + kThreads - 1) / d : g - 1;
+  const float* ml = part_ml + static_cast<size_t>(pair) * n_part * 2 * g;
+  const float* acc = part_acc + static_cast<size_t>(pair) * n_part * gd;
+  for (int gi = h0 + warp; gi <= h1; gi += kWarps) {
+    float m = -INFINITY;
+    for (int i = lane; i < n_part; i += 32) m = fmaxf(m, ml[i * 2 * g + gi]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int i = lane; i < n_part; i += 32)  // an empty partial: m_i = -inf, weight 0
+      l = fmaf(expf(ml[i * 2 * g + gi] - m), ml[i * 2 * g + g + gi], l);
+    l = warp_sum(l);
+    if (lane == 0) {
+      m_s[gi - h0] = m;
+      den_s[gi - h0] = fmaxf(l, 1e-30f);
+    }
+  }
+  __syncthreads();
+  const int e = e0 + tid;
+  if (e >= gd) return;
+  const int gi = e / d;
+  const float m = m_s[gi - h0];
+  float a = 0.f;
+  for (int i = 0; i < n_part; ++i)
+    a = fmaf(expf(ml[i * 2 * g + gi] - m), acc[static_cast<size_t>(i) * gd + e], a);
+  out[static_cast<size_t>(pair) * gd + e] = from_f<T>(a / den_s[gi - h0]);
+}
+
 // Calls f(std::integral_constant<int, ACC>) with the fewest accumulators a
-// thread needs for G * d, a power of two up to kMaxAcc.
+// thread of the f32 split kernel needs for G * d, a power of two up to
+// kMaxAcc.
 template <typename F>
 cudaError_t with_acc(int gd, F&& f) {
   const int need = (gd + kThreads - 1) / kThreads;
@@ -359,47 +737,68 @@ cudaError_t with_acc(int gd, F&& f) {
   return f(std::integral_constant<int, kMaxAcc>{});
 }
 
-// The shapes the split kernel takes (see the header): d a divisor of
-// kThreads with rows a multiple of 16 bytes, G * d <= kThreads * kMaxAcc.
+// Calls f(std::integral_constant<int, D>) for a head width of the
+// tensor-core kernel.
+template <typename F>
+cudaError_t with_d(int d, F&& f) {
+  switch (d) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The shapes the kernels take (see the header): d a divisor of kThreads
+// with rows a multiple of 16 bytes, G * d <= kThreads * kMaxAcc.
 bool takes(int g, int d, int elem) {
   return g > 0 && d > 0 && kThreads % d == 0 && d * elem % 16 == 0 &&
          g * d <= kThreads * kMaxAcc;
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* cur, int b, int s,
-                   int hkv, int g, int d, float scale, float cap, int window, int chunk,
-                   int n_split, float* part_ml, float* part_acc, void* out,
-                   cudaStream_t stream) {
-  const size_t smem = SplitSmem(g, d, sizeof(T)).total;
-  cudaError_t err = with_acc(g * d, [&](auto acc) {
+// The tensor-core kernel's ring and head slots: stages in range, and each
+// warp holding at most tc_max_groups(d) head groups.
+bool tc_takes(int g, int d, int stages, int head_slots) {
+  return stages >= kTcMinStages && stages <= kTcMaxStages &&
+         (head_slots == 1 || head_slots == 2 || head_slots == 4) &&
+         ((g + 7) / 8 + head_slots - 1) / head_slots <= tc_max_groups(d);
+}
+
+cudaError_t launch_f32(const float* q, const float* k, const float* v, const int* cur, int b,
+                       int s, int hkv, int g, int d, float scale, float cap, int window,
+                       int chunk, int n_split, float* part_ml, float* part_acc,
+                       cudaStream_t stream) {
+  const size_t smem = SplitSmem(g, d).total;
+  return with_acc(g * d, [&](auto acc) {
     constexpr int kAcc = decltype(acc)::value;
-    cudaError_t e = cudaFuncSetAttribute(decode_split_kernel<T, kAcc>,
+    cudaError_t e = cudaFuncSetAttribute(decode_split_kernel<kAcc>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
-    decode_split_kernel<T, kAcc><<<dim3(n_split, b * hkv), kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), cur, s,
-        hkv, g, d, scale, cap, window, chunk, part_ml, part_acc);
+    decode_split_kernel<kAcc><<<dim3(n_split, b * hkv), kThreads, smem, stream>>>(
+        q, k, v, cur, s, hkv, g, d, scale, cap, window, chunk, part_ml, part_acc);
     return cudaGetLastError();
   });
-  if (err != cudaSuccess) return err;
-  const size_t merge_smem = sizeof(float) * (static_cast<size_t>(n_split) * g + g);
-  decode_merge_kernel<T><<<b * hkv, kThreads, merge_smem, stream>>>(
-      part_ml, part_acc, n_split, g, d, static_cast<T*>(out));
-  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t blocks_per_sm(int g, int d, int* n) {
-  const size_t smem = SplitSmem(g, d, sizeof(T)).total;
-  return with_acc(g * d, [&](auto acc) {
-    constexpr int kAcc = decltype(acc)::value;
-    const void* fn = reinterpret_cast<const void*>(decode_split_kernel<T, kAcc>);
-    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const int* cur, int b,
+                      int s, int hkv, int g, int d, float scale, float cap, int window,
+                      int chunk, int n_split, int stages, int head_slots, float* part_ml,
+                      float* part_acc, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(stages, head_slots);
+  return with_d(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    cudaError_t e = cudaFuncSetAttribute(decode_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, fn, kThreads, smem);
+    decode_tc_kernel<D><<<dim3(n_split, b * hkv), kTcThreads, smem, stream>>>(
+        q, k, v, cur, s, hkv, g, scale, cap, window, chunk, stages, head_slots, part_ml,
+        part_acc);
+    return cudaGetLastError();
   });
 }
 
@@ -409,14 +808,33 @@ extern "C" {
 
 // Blocks of the split kernel one SM holds at once for these shapes (0 on
 // error or shapes it does not take): the wrapper sizes the split so the
-// blocks fill whole waves.
-int decode_attention_blocks_per_sm(int g, int d, int dtype) {
+// blocks fill whole waves.  dtype 0 is f32 (the CUDA-core kernel), 1 bf16
+// (the tensor-core kernel with a ring of `stages` stages and `head_slots`
+// head slots).
+int decode_attention_blocks_per_sm(int g, int d, int dtype, int stages, int head_slots) {
   int n = 0;
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && takes(g, d, sizeof(float)))
-    err = blocks_per_sm<float>(g, d, &n);
-  else if (dtype == 1 && takes(g, d, sizeof(__nv_bfloat16)))
-    err = blocks_per_sm<__nv_bfloat16>(g, d, &n);
+  if (dtype == 0 && takes(g, d, sizeof(float))) {
+    const size_t smem = SplitSmem(g, d).total;
+    err = with_acc(g * d, [&](auto acc) {
+      constexpr int kAcc = decltype(acc)::value;
+      const void* fn = reinterpret_cast<const void*>(decode_split_kernel<kAcc>);
+      cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads, smem);
+    });
+  } else if (dtype == 1 && takes(g, d, sizeof(bf16)) && tc_takes(g, d, stages, head_slots)) {
+    const size_t smem = tc_smem_bytes(stages, head_slots);
+    err = with_d(d, [&](auto dc) {
+      constexpr int D = decltype(dc)::value;
+      const void* fn = reinterpret_cast<const void*>(decode_tc_kernel<D>);
+      cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kTcThreads, smem);
+    });
+  }
   return err == cudaSuccess ? n : 0;
 }
 
@@ -424,29 +842,54 @@ int decode_attention_blocks_per_sm(int g, int d, int dtype) {
 // and contiguous, all float32 (dtype 0) or bfloat16 (dtype 1), k and v
 // 16-byte aligned; cur is an int32 on the device.  cap <= 0 means no
 // softcap, window <= 0 no window.
-// The wrapper picks chunk (a multiple of 32) and n_split with chunk *
-// n_split >= s, and allocates part_ml (b*hkv, n_split, 2, g) and part_acc
-// (b*hkv, n_split, g, d) f32.  Launches on `stream`; does not synchronise.
+// The wrapper picks chunk and n_split with chunk * n_split >= s, for bf16
+// the ring's stages and the head slots (1, 2 or 4; key_slots = 4 /
+// head_slots); chunk is a multiple of 32 keys for f32 and of a stage's
+// keys, key_slots * 4096 / d, for bf16.  It allocates
+// part_ml (b*hkv, n_part, 2, g) and part_acc (b*hkv, n_part, g, d) f32,
+// n_part = n_split for f32 and n_split * key_slots for bf16.  Launches on
+// `stream`; does not synchronise.
 int decode_attention_launch(const void* q, const void* k, const void* v, const void* cur,
                             int b, int s, int hkv, int g, int d, float scale, float cap,
-                            int window, int dtype, int chunk, int n_split, void* part_ml,
-                            void* part_acc, void* out, void* stream) {
+                            int window, int dtype, int chunk, int n_split, int stages,
+                            int head_slots, void* part_ml, void* part_acc, void* out,
+                            void* stream) {
   const int elem = dtype == 0 ? 4 : 2;
-  if ((dtype != 0 && dtype != 1) || b <= 0 || s <= 0 || hkv <= 0 || !takes(g, d, elem) ||
-      reinterpret_cast<uintptr_t>(k) % 16 != 0 || reinterpret_cast<uintptr_t>(v) % 16 != 0 ||
-      chunk <= 0 || chunk % kTile != 0 || n_split <= 0 || n_split > 65535 ||
-      static_cast<long long>(chunk) * n_split < s || static_cast<long long>(b) * hkv > 65535)
+  if ((dtype != 0 && dtype != 1) || !takes(g, d, elem) ||
+      (dtype == 1 && !tc_takes(g, d, stages, head_slots)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = dtype == 0 ? kTile : tc_stage_keys(d, head_slots);
+  if (b <= 0 || s <= 0 || hkv <= 0 || reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(v) % 16 != 0 || chunk <= 0 || chunk % tile != 0 ||
+      n_split <= 0 || n_split > 65535 || static_cast<long long>(chunk) * n_split < s ||
+      static_cast<long long>(b) * hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* c = static_cast<const int*>(cur);
   float* ml = static_cast<float*>(part_ml);
   float* acc = static_cast<float*>(part_acc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 0 ? launch<float>(q, k, v, c, b, s, hkv, g, d, scale, cap, window, chunk,
-                                 n_split, ml, acc, out, st)
-                 : launch<__nv_bfloat16>(q, k, v, c, b, s, hkv, g, d, scale, cap, window,
-                                         chunk, n_split, ml, acc, out, st);
-  return static_cast<int>(err);
+  cudaError_t err;
+  int n_part;
+  if (dtype == 0) {
+    err = launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), c, b, s, hkv, g, d, scale, cap, window,
+                     chunk, n_split, ml, acc, st);
+    n_part = n_split;
+  } else {
+    err = launch_tc(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), c, b, s, hkv, g, d, scale, cap, window, chunk,
+                    n_split, stages, head_slots, ml, acc, st);
+    n_part = n_split * (kTcWarps / head_slots);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 merge_grid((g * d + kThreads - 1) / kThreads, b * hkv);
+  if (dtype == 0)
+    decode_merge_kernel<float><<<merge_grid, kThreads, 0, st>>>(ml, acc, n_part, g, d,
+                                                                static_cast<float*>(out));
+  else
+    decode_merge_kernel<bf16><<<merge_grid, kThreads, 0, st>>>(ml, acc, n_part, g, d,
+                                                               static_cast<bf16*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -2,11 +2,14 @@
 
 Replaces the Pallas TPU kernel ``repro.kernels.decode_attention.kernel.
 decode_attention`` (``src/repro/kernels/decode_attention/kernel.py:90``)
-with ``decode_split_kernel`` + ``decode_merge_kernel`` in
-``repro_torch/csrc/decode_attention.cu``: S is split across blocks
-(flash-decoding) and the partial softmax states are merged by a second
-launch.  The source says what bounds it on an H100 (bytes) and what the
-design does about it.
+with the kernels of ``repro_torch/csrc/decode_attention.cu``: S is split
+across blocks (flash-decoding) and the partial softmax states are merged
+by a second launch (``decode_merge_kernel``).  In bf16, the decode path's
+type, ``decode_tc_kernel`` runs q.k and p.v on the tensor cores, fed by a
+producer warp's bulk copies through a ring of ``mbarrier`` stages; in f32
+``decode_split_kernel`` runs on the CUDA cores (the tensor cores would
+round f32 to TF32).  The dtype chooses; there is no switch.  The source
+says what bounds it on an H100 (bytes) and what the design does about it.
 
 A tensor on the CPU runs the plain version
 (:func:`repro_torch.kernels.decode_attention.ref.decode_attention_plain`);
@@ -30,17 +33,33 @@ from .ref import decode_attention_plain
 #: calls run the plain version and do not count)
 launches = 0
 
-#: keys per shared-memory tile, as ``kTile`` in the CUDA source
+#: f32 path: keys per shared-memory tile, as ``kTile`` in the CUDA source
 TILE = 32
 #: most blocks one (batch, kv head) pair's S is split over
 MAX_SPLITS = 256
-#: a block's fixed cost (loading q, the first tile's copy, writing its
-#: partial state), in tiles' time, for :func:`split_plan`
+#: f32 path: a block's fixed cost (loading q, the first tile's copy, writing
+#: its partial state), in tiles' time, for :func:`split_plan`
 BLOCK_COST = 2
-#: what the kernel takes: its 256 threads hold G*d accumulators, at most 16
-#: each, one column of d each (d divides 256), and it copies K and V rows in
-#: 16-byte pieces (rows a multiple of 16 bytes, K and V 16-byte aligned).
-#: Every LM of the registry has head_dim 16, 128 or 256.
+#: bf16 path: consumer warps (``kTcWarps``), which split a stage's keys
+#: (key slots) and the head groups (head slots); the bytes of consecutive
+#: positions one copy moves (``kUnitRowBytes``) and the unit's shared
+#: bytes with its padding (``kUnitBytes``); a warp takes eight units of K
+#: and eight of V a stage
+TC_WARPS = 4
+UNIT_ROW_BYTES = 1024
+UNIT_BYTES = UNIT_ROW_BYTES + 16
+#: bf16 path: a block's fixed cost in stages' time (a stage is ~64 KB with
+#: four key slots, ~2.6 us of one SM's share of the HBM rate): loading q
+#: and the barriers, the first stage's latency, writing its partial states
+TC_BLOCK_COST = 1
+#: bf16 path: the ring's shared memory, ~200 KB of the 227 KB a block may
+#: have, in 2 to 16 stages (``kTcMinStages``, ``kTcMaxStages``)
+RING_BYTES = 200 * 1024
+MIN_STAGES, MAX_STAGES = 2, 16
+#: what the kernels take: d dividing 256, rows a multiple of 16 bytes (the
+#: copies move 16-byte pieces), G*d <= 4096 (the f32 kernel's 256 threads
+#: hold at most 16 accumulators each), K and V 16-byte aligned.  Every LM
+#: of the registry has head_dim 16, 128 or 256.
 THREADS = 256
 MAX_GROUP_WIDTH = 4096
 
@@ -53,37 +72,73 @@ _F = ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.library("decode_attention").decode_attention_launch
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P]
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I,
+                   _P, _P, _P, _P]
     fn.restype = _I
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _slots(index: int, g: int, d: int, dtype: int) -> int:
+def _slots(index: int, g: int, d: int, dtype: int, stages: int, h_slots: int) -> int:
     """Blocks of the split kernel the card holds at once for these shapes."""
-    per_sm = _build.library("decode_attention").decode_attention_blocks_per_sm(g, d, dtype)
+    lib = _build.library("decode_attention")
+    per_sm = lib.decode_attention_blocks_per_sm(g, d, dtype, stages, h_slots)
     if per_sm < 1:
         raise RuntimeError(f"decode_attention: no occupancy for G={g}, d={d}")
     return per_sm * torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def head_slots(g: int, d: int) -> int:
+    """Consumer warps that split the bf16 kernel's head groups (eight query
+    heads each): a warp holds at most ``max(1, 128 // d)`` groups
+    (``tc_max_groups``), so 1, 2 or 4; the other factor of
+    :data:`TC_WARPS` splits each stage's keys (key slots)."""
+    groups = -(-g // 8)
+    need = -(-groups // max(1, 128 // d))
+    return next(n for n in (1, 2, 4) if n >= need)
+
+
+def stage_keys(d: int, h_slots: int) -> int:
+    """Keys of one bf16 ring stage with ``h_slots`` head slots: eight 1 KB
+    units of positions for each key slot (``tc_stage_keys``; 64 at d = 256
+    with one head slot)."""
+    return TC_WARPS // h_slots * 8 * (UNIT_ROW_BYTES // (2 * d))
+
+
+def stage_bytes(h_slots: int) -> int:
+    """Shared bytes of one bf16 ring stage: eight K and eight V units for
+    each key slot (``tc_stage_bytes``); the units are padded by 16 bytes, so
+    an ldmatrix operand's eight rows, one from each unit, fall in distinct
+    banks."""
+    return 2 * 8 * (TC_WARPS // h_slots) * UNIT_BYTES
+
+
+def ring_stages(h_slots: int) -> int:
+    """Stages of the bf16 ring: as many as :data:`RING_BYTES` holds, within
+    [:data:`MIN_STAGES`, :data:`MAX_STAGES`] (3 with one head slot: 195 KB,
+    two stages in flight while the consumers read the third)."""
+    return max(MIN_STAGES, min(MAX_STAGES, RING_BYTES // stage_bytes(h_slots)))
+
+
 @functools.lru_cache(maxsize=None)
-def split_plan(pairs: int, s: int, slots: int) -> Tuple[int, int]:
+def split_plan(pairs: int, s: int, slots: int, tile: int = TILE,
+               block_cost: int = BLOCK_COST) -> Tuple[int, int]:
     """``(chunk, n_split)``: the keys each block sweeps (a multiple of
-    :data:`TILE`) and the blocks each of the ``pairs`` (batch, kv head)
+    ``tile``) and the blocks each of the ``pairs`` (batch, kv head)
     pairs is split over.  With ``slots`` blocks resident at once, the run
-    takes about (waves) x (tiles per block + :data:`BLOCK_COST` for a
-    block's start and its partial write): the split minimises that, the
-    fewest blocks among equals.  Fixed by the shapes alone: the fill
-    level ``cur_len`` lives on the device, and blocks wholly past it
-    return at once."""
-    tiles = -(-s // TILE)
+    takes about (waves) x (tiles per block + ``block_cost`` for a block's
+    start and its partial write): the split minimises that, the fewest
+    blocks among equals.  Fixed by the shapes alone: the fill level
+    ``cur_len`` lives on the device, and blocks wholly past it return at
+    once.  The f32 kernel's tile is :data:`TILE` keys, the bf16 kernel's
+    a ring stage, :func:`stage_keys` (with :data:`TC_BLOCK_COST`)."""
+    tiles = -(-s // tile)
     best_cost, best_n = None, 1
     for n in range(1, min(MAX_SPLITS, tiles) + 1):
-        cost = -(-pairs * n // slots) * (-(-tiles // n) + BLOCK_COST)
+        cost = -(-pairs * n // slots) * (-(-tiles // n) + block_cost)
         if best_cost is None or cost < best_cost:
             best_cost, best_n = cost, n
-    chunk = -(-tiles // best_n) * TILE
+    chunk = -(-tiles // best_n) * tile
     return chunk, -(-s // chunk)
 
 
@@ -140,17 +195,25 @@ def decode_attention(
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("the kernel takes K and V 16-byte aligned")
     index = dev.index if dev.index is not None else torch.cuda.current_device()
+    dtype = _DTYPES[q.dtype]
+    if dtype == 0:
+        stages, h_slots, parts_per_split, tile, cost = 0, 1, 1, TILE, BLOCK_COST
+    else:
+        h_slots = head_slots(g, d)
+        stages, tile, cost = ring_stages(h_slots), stage_keys(d, h_slots), TC_BLOCK_COST
+        parts_per_split = TC_WARPS // h_slots
     with torch.cuda.device(dev):
-        slots = _slots(index, g, d, _DTYPES[q.dtype])
-    chunk, n_split = split_plan(b * hkv, s, slots)
+        slots = _slots(index, g, d, dtype, stages, h_slots)
+    chunk, n_split = split_plan(b * hkv, s, slots, tile, cost)
+    n_part = n_split * parts_per_split
     out = torch.empty_like(q)
-    part_ml = torch.empty((b * hkv, n_split, 2, g), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((b * hkv, n_split, g, d), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((b * hkv, n_part, 2, g), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((b * hkv, n_part, g, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), cur_len.data_ptr(),
             b, s, hkv, g, d, float(scale), float(softcap or 0.0), int(window or 0),
-            _DTYPES[q.dtype], chunk, n_split,
+            dtype, chunk, n_split, stages, h_slots,
             part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )

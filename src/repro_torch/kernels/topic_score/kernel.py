@@ -28,6 +28,10 @@ from .ref import topic_score_plain
 #: version and do not count)
 launches = 0
 
+#: most accumulators a lane holds, as ``kMaxAcc`` in the CUDA source: one
+#: pass over a row covers 32 * MAX_ACC topics
+MAX_ACC = 16
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -35,9 +39,22 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.library("topic_score").topic_score_launch
-    fn.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P]
+    fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
     fn.restype = _I
     return fn
+
+
+def acc_count(k: int) -> int:
+    """Accumulators a lane holds for ``k`` topics (the kernel's template
+    parameter): one per 32 topics, at most :data:`MAX_ACC`; a wider ``k``
+    is swept in passes of ``32 * acc_count(k)`` topics."""
+    return min(-(-k // 32), MAX_ACC)
+
+
+def vec_width(ptr: int, v: int) -> int:
+    """Words a lane loads at once: 4 (16 bytes) when every row of the counts
+    starts 16-byte aligned, else 1."""
+    return 4 if ptr % 16 == 0 and v % 4 == 0 else 1
 
 
 def topic_score(
@@ -46,7 +63,11 @@ def topic_score(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(scores (B, K) f32, top (B,) int32, conf (B,) f32)`` of ``counts @
     log_phi_t``: ``top`` is the first maximal topic and ``conf`` its softmax
-    probability.  Launches on the current stream and does not synchronise."""
+    probability.  Launches on the current stream and does not synchronise.
+
+    ``log_phi_t`` must be finite: the kernel skips zero counts, so a zero
+    count times a non-finite entry (NaN in the dense product) is not
+    formed.  The pipeline's ``log_phi`` is ``log(max(phi, 1e-12))``."""
     global launches
     if counts.dim() != 2 or log_phi_t.dim() != 2:
         raise ValueError(
@@ -72,6 +93,7 @@ def topic_score(
     with torch.cuda.device(dev):
         err = _entry()(
             counts.data_ptr(), log_phi_t.data_ptr(), b, v, k,
+            acc_count(k), vec_width(counts.data_ptr(), v),
             scores.data_ptr(), top.data_ptr(), conf.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )

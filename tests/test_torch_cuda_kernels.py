@@ -314,6 +314,66 @@ def test_topic_score_kernel_edge_cases_on_the_card(cuda, b, v, k):
         assert bool((t[full] == tie[0]).all())
 
 
+def _sparse_case(kind, b, v, k):
+    """Counts for the redesign's cases: ``dense`` (every count non-zero),
+    ``ends`` (a single non-zero per row, at word 0 or V - 1), ``zero`` (all
+    rows empty), ``sparse`` (~1% non-zero, as the pipeline's chunks)."""
+    rng = np.random.default_rng(b * 13 + v + k)
+    if kind == "dense":
+        counts = rng.integers(1, 4, size=(b, v)).astype(np.float32)
+    elif kind == "ends":
+        counts = np.zeros((b, v), np.float32)
+        counts[0::2, 0] = rng.integers(1, 4, size=len(range(0, b, 2)))
+        counts[1::2, v - 1] = rng.integers(1, 4, size=len(range(1, b, 2)))
+    elif kind == "zero":
+        counts = np.zeros((b, v), np.float32)
+    else:
+        counts = (rng.random((b, v)) < 0.01) * rng.integers(1, 4, size=(b, v))
+        counts = counts.astype(np.float32)
+    lpt = np.log(rng.dirichlet(np.ones(v) * 0.1, size=k).T + 1e-12).astype(np.float32)
+    return torch.from_numpy(counts), torch.from_numpy(np.ascontiguousarray(lpt))
+
+
+@pytest.mark.parametrize("kind,b,v,k", [
+    ("dense", 300, 1000, 96), ("dense", 37, 4096, 33), ("ends", 41, 4096, 96),
+    ("ends", 17, 1001, 500), ("zero", 25, 640, 96),
+    *[("sparse", 203, 1003, k) for k in (1, 31, 32, 33, 96, 500, 600)],
+    ("sparse", 8192, 4096, 96), ("sparse", 13, 5, 7),
+])
+def test_topic_score_kernel_over_the_non_zero_counts(cuda, kind, b, v, k):
+    """The kernel takes FMAs for the non-zero counts only: a fully dense
+    chunk, single non-zeros at words 0 and V - 1, all-zero rows, K on and
+    off the lanes' 32-topic steps and past one pass (512 topics), B and V
+    off every tile (V = 1003 and 5: one word a load)."""
+    counts, lpt = (x.to(cuda) for x in _sparse_case(kind, b, v, k))
+    before = ts_kernel.launches
+    got = ts_kernel.topic_score(counts, lpt)
+    torch.cuda.synchronize()
+    assert ts_kernel.launches == before + 1
+    # a dense row scores ~ -1e4, where two summation orders move conf (a
+    # softmax of score differences) by ~1%: conf is held to the epilogue
+    _assert_topic_close(got, topic_score_plain(counts, lpt),
+                        same_conf=v <= 1024 and kind != "dense")
+    if kind == "zero":
+        s, t, c = got
+        assert bool((s == 0).all()) and bool((t == 0).all())
+        torch.testing.assert_close(c, torch.full_like(c, 1.0 / k))
+
+
+def test_topic_score_kernel_on_rows_off_16_byte_alignment(cuda):
+    """Counts whose rows start 4 bytes past a 16-byte boundary take one
+    word a load; the sums and the epilogue are unchanged."""
+    counts, lpt = (x.to(cuda) for x in _sparse_case("sparse", 64, 1000, 96))
+    buf = torch.zeros(counts.numel() + 1, device=cuda)
+    shifted = buf[1:].view(counts.shape).copy_(counts)
+    assert ts_kernel.vec_width(shifted.data_ptr(), 1000) == 1
+    got = ts_kernel.topic_score(shifted, lpt)
+    want = ts_kernel.topic_score(counts, lpt)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)  # the same FMAs in the same order
+
+
 def test_topic_score_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     counts, lpt = (x.to(cuda) for x in _topic_case(0, 16, 32, 4))
     with pytest.raises(TypeError):
@@ -397,6 +457,57 @@ def test_decode_attention_kernel_equals_plain_on_the_card(cuda, b, hkv, g, d, s,
         assert da_kernel.launches == before + 1
         assert got.dtype == dtype and got.shape == q.shape
         want = decode_attention_plain(q, k, v, cur_t, d**-0.5, cap, win)
+        _assert_decode_close(got, want)
+
+
+def _ring_curs(dev, b, hkv, g, d, s, dtype):
+    """Fill levels at the bf16 kernel's ring-stage and chunk boundaries for
+    these shapes: one short of, at and one past the first stage's end, the
+    ring's wrap (every stage filled once) and each chunk's end."""
+    if dtype != torch.bfloat16:
+        return [0, s // 3, s - 1]
+    h_slots = da_kernel.head_slots(g, d)
+    tile = da_kernel.stage_keys(d, h_slots)
+    stages = da_kernel.ring_stages(h_slots)
+    wrap = stages * tile
+    resident = da_kernel._slots(dev.index or 0, g, d, 1, stages, h_slots)
+    chunk, _ = da_kernel.split_plan(b * hkv, s, resident, tile, da_kernel.TC_BLOCK_COST)
+    curs = {tile - 1, tile, tile + 1, wrap - 1, wrap, wrap + 1, chunk - 1, chunk, chunk + 1,
+            s - 1, 0}
+    return sorted(c for c in curs if 0 <= c < s)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_decode_attention_tensor_core_kernel_on_the_card(cuda, g, d):
+    """The bf16 kernel (mma.sync on the tensor cores, p as two bf16 halves,
+    a bulk-copy ring) against its plain version: G in {1, 2, 4, 8, 16}, d
+    in {64, 128, 256}, S off every stage, the fill level at ring-stage and
+    chunk boundaries; with a softcap and a window on every other case."""
+    s = 3 * da_kernel.stage_keys(d, da_kernel.head_slots(g, d)) * 3 + 37
+    q, k, v = (x.to(cuda) for x in _decode_case(g * d + 1, 3, 1, g, d, s, torch.bfloat16))
+    cap, win = (30.0, s // 4) if (g + d // 64) % 2 else (None, None)
+    for cur in _ring_curs(cuda, 3, 1, g, d, s, torch.bfloat16):
+        cur_t = torch.tensor(cur, dtype=torch.int32, device=cuda)
+        got = decode_attention_op(q, k, v, cur_t, d**-0.5, cap, win)
+        want = decode_attention_plain(q, k, v, cur_t, d**-0.5, cap, win)
+        torch.cuda.synchronize()
+        _assert_decode_close(got, want)
+
+
+@pytest.mark.parametrize("hkv,g,d,cap,win", [(2, 8, 128, None, None), (4, 2, 256, 50.0, 300),
+                                             (3, 16, 64, None, 90), (2, 4, 16, 20.0, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_with_strided_heads(cuda, hkv, g, d, cap, win, dtype):
+    """Hkv > 1: a position's rows of one kv head are strided, so the bf16
+    ring copies them one row a copy; the f32 path beside it."""
+    s = 2 * da_kernel.stage_keys(d, da_kernel.head_slots(g, d)) + 11
+    q, k, v = (x.to(cuda) for x in _decode_case(hkv * g + d, 2, hkv, g, d, s, dtype))
+    for cur in _ring_curs(cuda, 2, hkv, g, d, s, dtype):
+        cur_t = torch.tensor(cur, dtype=torch.int32, device=cuda)
+        got = decode_attention_op(q, k, v, cur_t, d**-0.5, cap, win)
+        want = decode_attention_plain(q, k, v, cur_t, d**-0.5, cap, win)
+        torch.cuda.synchronize()
         _assert_decode_close(got, want)
 
 

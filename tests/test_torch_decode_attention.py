@@ -138,3 +138,50 @@ def test_wrapper_checks_its_operands_on_the_cpu():
         da_kernel.decode_attention(q, k, v, 3, 0.1, window=0)
     with pytest.raises(ValueError):
         da_kernel.decode_attention(q, k, v, 3, 0.1, softcap=-1.0)
+
+
+@pytest.mark.parametrize("g,d,slots", [(8, 256, 1), (16, 256, 2), (1, 128, 1), (16, 128, 2),
+                                       (32, 128, 4), (24, 128, 4), (64, 64, 4), (32, 64, 2),
+                                       (2, 16, 1), (256, 16, 4), (512, 8, 4), (3, 8, 1)])
+def test_head_slots_hold_every_group(g, d, slots):
+    """The bf16 kernel's four consumer warps split the head groups (eight
+    heads each) into 1, 2 or 4 head slots, each warp holding at most
+    max(1, 128 // d) groups; the rest of the four split the keys."""
+    assert da_kernel.head_slots(g, d) == slots
+    groups = -(-g // 8)
+    assert -(-groups // slots) <= max(1, 128 // d)
+    assert da_kernel.TC_WARPS % slots == 0
+
+
+def test_every_shape_the_wrapper_takes_has_head_slots():
+    for d in (8, 16, 32, 64, 128, 256):
+        for g in range(1, da_kernel.MAX_GROUP_WIDTH // d + 1):
+            groups, slots = -(-g // 8), da_kernel.head_slots(g, d)
+            assert -(-groups // slots) <= max(1, 128 // d), (g, d)
+
+
+@pytest.mark.parametrize("h_slots,keys256,stages", [(1, 64, 3), (2, 32, 6), (4, 16, 12)])
+def test_ring_sizing(h_slots, keys256, stages):
+    """A stage holds eight 1 KB units of K and of V for each key slot: 64
+    keys at d = 256 with one head slot, three stages in ~200 KB of the 227
+    KB (232,448 bytes) a block may have."""
+    assert da_kernel.stage_keys(256, h_slots) == keys256
+    for d in (8, 16, 32, 64, 128, 256):
+        keys = da_kernel.stage_keys(d, h_slots)
+        assert keys * 2 * d == (da_kernel.TC_WARPS // h_slots) * 8 * da_kernel.UNIT_ROW_BYTES
+        assert keys % 16 == 0  # whole 16-key mma steps for every warp
+    assert da_kernel.ring_stages(h_slots) == stages
+    ring = da_kernel.ring_stages(h_slots) * (da_kernel.stage_bytes(h_slots) + 16)
+    assert ring <= da_kernel.RING_BYTES + 16 * stages <= 232_448
+    assert da_kernel.stage_bytes(h_slots) % 16 == 0 and da_kernel.UNIT_BYTES % 128 == 16
+
+
+def test_split_plan_of_the_bf16_kernel_at_the_decode_shape():
+    """gemma-2b's decode shape in bf16: 64 pairs over 32768 keys, one block
+    an SM (132 slots), stages of 64 keys: two chunks of 16384 keys, one
+    wave of 128 blocks (three chunks would take two waves)."""
+    tile = da_kernel.stage_keys(256, da_kernel.head_slots(8, 256))
+    assert da_kernel.split_plan(64, 32768, 132, tile, da_kernel.TC_BLOCK_COST) == (16384, 2)
+    for pairs, s in ((1, 100), (32, 8200), (4, 2081), (128, 1)):
+        chunk, n_split = da_kernel.split_plan(pairs, s, 132, tile, da_kernel.TC_BLOCK_COST)
+        assert chunk % tile == 0 and (n_split - 1) * chunk < s <= n_split * chunk

@@ -93,3 +93,20 @@ def test_op_takes_views_and_the_wrapper_checks_its_operands():
         ts_kernel.topic_score(c, t[:, :0].contiguous())
     s, top, conf = topic_score_op(c[:0], t)
     assert s.shape == (0, 5) and top.shape == (0,) and conf.shape == (0,)
+
+
+@pytest.mark.parametrize("k,acc", [(1, 1), (31, 1), (32, 1), (33, 2), (96, 3), (500, 16),
+                                   (512, 16), (513, 16), (2000, 16)])
+def test_accumulators_per_lane(k, acc):
+    """One accumulator a lane per 32 topics, at most MAX_ACC: a wider K is
+    swept in passes of 32 * acc topics."""
+    assert ts_kernel.acc_count(k) == acc
+    assert 32 * acc >= min(k, 32 * ts_kernel.MAX_ACC)
+
+
+@pytest.mark.parametrize("ptr,v,vec", [(0, 4096, 4), (256, 4096, 4), (4, 4096, 1), (8, 1000, 1),
+                                       (0, 4097, 1), (0, 130, 1)])
+def test_load_width(ptr, v, vec):
+    """16-byte loads only when every row of the counts starts 16-byte
+    aligned."""
+    assert ts_kernel.vec_width(ptr, v) == vec
