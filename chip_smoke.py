@@ -88,11 +88,18 @@ Phases (any failure raises and exits non-zero):
 10. kernels: each cache kernel against its plain PyTorch version on the
    card, tolerance 0 (integer state), on the serving path's own batch (the
    inputs of the second served batch's launch, captured), on a batch spread
-   uniformly over the sets, and on an edge-case batch (deep same-set
-   conflicts, duplicates, pad keys, epochs at and above 2**31).  Times each
-   kernel on the serving batch with CUDA events (state restored and L2
-   flushed before every launch) beside its byte bound and the plain
-   version's time.  ``topic_score`` against its plain version on the
+   uniformly over the sets, on an edge-case batch (deep same-set
+   conflicts, duplicates, pad keys, epochs at and above 2**31), on a batch
+   with one segment of ``DEEP_DEPTH`` requests, on a batch all in one set,
+   on a depth sweep (one segment of each of ``SWEEP_DEPTHS``, two runs of
+   static hits) and on the deep and one-set batches at each of
+   ``SWEEP_WAYS`` (``commit_cases``); for each it prints the deepest
+   segment's depth and mix (static, pad, admitted, not admitted) and both
+   kernels' device time (CUDA events, state restored and L2 flushed before
+   every launch).  On the serving batch also the byte bound and the plain
+   version's time, and once the device time of an empty launch of the
+   commit kernels' grid.
+   ``topic_score`` against its plain version on the
    pipeline's first classification chunk (captured) and on edge cases
    (all-zero rows, K = 1, K = 500, ragged B and V, exact ties): scores
    within rtol 1e-4, ``top`` exact or within a near-tie, confidences within
@@ -121,6 +128,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -151,6 +159,14 @@ N_WARM = 4096
 N_BATCHES = 64
 N_CPU_BATCHES = 8
 N_PROFILE = 9
+#: the kernels phase's deep case: a segment of this many requests to one
+#: set (the depth at which the first commit kernel took 410 us)
+DEEP_DEPTH = 355
+#: the commit kernels' time against depth: one segment of each depth among
+#: the batch's short ones (``uniform``'s deepest is ~4), at W = 8
+SWEEP_DEPTHS = (8, 32, 33, 80, 1024)
+#: the widths at which the deep and one-set cases run again
+SWEEP_WAYS = (4, 16, 32)
 #: the served topical share may differ from the config's by this much
 #: (binomial sd over the served requests is ~0.0009)
 TOPICAL_TOL = 0.01
@@ -1126,7 +1142,8 @@ def _words(rng, shape):
     return rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
 
 
-def kernel_case(seed: int, s: int, b: int, kind: str):
+def kernel_case(seed: int, s: int, b: int, kind: str, depth: int = DEEP_DEPTH, w: int = WAYS,
+                static_run: bool = False):
     """Host arrays of one synthetic serve step: a warm packed state, a
     request batch and the previous batch's fill plan.
 
@@ -1135,12 +1152,18 @@ def kernel_case(seed: int, s: int, b: int, kind: str):
     mix of fresh and stale entries, epochs above 2**31.  ``edge`` crowds
     the batch into 64 sets (deep conflicts), interleaves pads and
     duplicates, puts epochs on both sides of 2**31 with floors saturated at
-    2**32 - 1, and makes the fill plan collide.
+    2**32 - 1, and makes the fill plan collide.  ``deep`` is ``edge``'s
+    epochs on ``uniform``'s spread with ``depth`` requests sent to one
+    set (a head query repeating: Zipf over the set's resident keys and
+    three times as many new ones, pads, static hits and non-admitted
+    misses among them); ``one_set`` sends the whole batch to that set (a
+    topic partition of one set).  ``static_run`` makes every request to
+    that set a static hit (a serving batch's head query).
     """
     rng = np.random.default_rng(seed)
-    w, v = WAYS, VDIM
+    v = VDIM
     edge = kind == "edge"
-    e0 = (1 << 31) - 2 if edge else (1 << 31) + 1000
+    e0 = (1 << 31) + 1000 if kind == "uniform" else (1 << 31) - 2
     key_hi, key_lo = _words(rng, (s, w)), _words(rng, (s, w))
     key_hi[rng.random((s, w)) < 0.1] = 0  # empty ways
     stamp = rng.integers(0, 1 << 30, size=(s, w)).astype(np.int32)
@@ -1159,12 +1182,24 @@ def kernel_case(seed: int, s: int, b: int, kind: str):
     h_hi[tail], h_lo[tail], set_idx[tail] = h_hi[dup], h_lo[dup], set_idx[dup]
     pads = np.arange(0, b, 13) if edge else np.arange(b - 96, b)
     h_hi[pads] = h_lo[pads] = 0xFFFFFFFF
-    admit = rng.random(b) < (0.7 if edge else 1.0)
+    admit = rng.random(b) < (1.0 if kind == "uniform" else 0.7)
     static_hit = rng.random(b) < 0.3
     epochs = np.full(b, e0 + 6, np.uint32)
     min_epoch = (e0 + rng.integers(-6, 6, size=b)).astype(np.uint32)
     if edge:
         min_epoch[rng.random(b) < 0.1] = 0xFFFFFFFF
+    if kind in ("deep", "one_set"):
+        run = (np.sort(rng.choice(b, depth, replace=False)) if kind == "deep"
+               else np.arange(b))
+        hot = int(rng.integers(0, s))
+        set_idx[run] = hot
+        pool_hi = np.concatenate([key_hi[hot], _words(rng, 3 * w)])
+        pool_lo = np.concatenate([key_lo[hot], _words(rng, 3 * w)])
+        pick = np.minimum(rng.zipf(1.3, size=len(run)) - 1, 4 * w - 1)
+        h_hi[run], h_lo[run] = pool_hi[pick], pool_lo[pick]
+        h_hi[run[::29]] = h_lo[run[::29]] = 0xFFFFFFFF
+        if static_run:
+            static_hit[set_idx == hot] = True
     n_fill = b // 2
     f_set = rng.integers(0, n_sets, size=n_fill).astype(np.int32)
     f_way = rng.integers(0, w, size=n_fill).astype(np.int32)
@@ -1494,20 +1529,69 @@ def check_decode_attention(device, lm, flush):
     return row
 
 
-def phase_kernels(device, served, topics, lm):
+def deepest_mix(common) -> str:
+    """The deepest segment of a planned batch: its depth and its requests
+    by kind (pads, static hits, admitted and not admitted requests)."""
+    order, leader, seg_len, _, h_hi, h_lo, admit, static_hit = (
+        x.cpu().numpy() for x in common[:8])
+    s = int(seg_len.argmax())
+    pos = order[leader[s] : leader[s] + seg_len[s]]
+    pad = (h_hi[pos] == -1) & (h_lo[pos] == -1)
+    stat = static_hit[pos] & ~pad
+    adm = admit[pos] & ~pad & ~stat
+    return (f"deepest segment {len(pos)}: static {int(stat.sum())}, pad {int(pad.sum())}, "
+            f"admitted {int(adm.sum())}, not admitted {int((~pad & ~stat & ~adm).sum())}")
+
+
+def empty_launch_ms(device, flush) -> float:
+    """Device time of one launch of the commit kernels' grid for a batch of
+    B that does nothing, on the current stream: the floor no launch of that
+    shape beats."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.library("cache_ops").cache_ops_empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run():
+        check(fn(B, torch.cuda.current_stream(device).cuda_stream) == 0, "empty launch")
+
+    return time_device(run, 100, flush, lambda: None)
+
+
+def commit_cases(device):
+    """The commit kernels' synthetic cases on ``device``, one at a time:
+    ``(label, serve args, probe args)``.  ``uniform``, ``edge``, ``deep``
+    and ``one_set`` at W = 8, the depth sweep (``SWEEP_DEPTHS``, and 80 and
+    ``DEEP_DEPTH`` with every request to the deep set a static hit), and
+    ``deep`` and ``one_set`` again at each of ``SWEEP_WAYS``."""
+    seeds = {kind: SEED + i for i, kind in enumerate(("uniform", "edge", "deep", "one_set"))}
+    specs = [(kind, kind, {}) for kind in seeds]
+    specs += [(f"deep {d}", "deep", dict(depth=d)) for d in SWEEP_DEPTHS]
+    specs += [(f"deep {d} static", "deep", dict(depth=d, static_run=True))
+              for d in (80, DEEP_DEPTH)]
+    for w in SWEEP_WAYS:
+        specs += [(f"{kind} W={w}", kind, dict(w=w)) for kind in ("deep", "one_set")]
+    for label, kind, kw in specs:
+        args = kernel_args(kernel_case(seeds[kind], 1 << 18, B, kind, **kw), device)
+        yield label, args, (args[0], *args[4:])
+
+
+def check_commit_kernels(cases, flush) -> dict:
+    """Hold ``serve_fused`` and ``probe_and_commit`` to their plain versions
+    bit for bit on each ``(label, serve args, probe args)`` case, print its
+    shape and deepest segment, and time both kernels (CUDA events, state
+    restored and L2 flushed before every launch).  The ``stream`` case (the
+    serving path's own batch) also gets the byte bound, the plain version's
+    time and the wrapper's host work.  Returns the kernels line's rows of
+    the two kernels."""
     from repro_torch.kernels.cache_ops import kernel as pac
     from repro_torch.kernels.cache_ops import ref
     from repro_torch.kernels.cache_ops import serve_kernel as srv
 
-    flush = torch.empty(1 << 26, dtype=torch.int32, device=device)  # 256 MiB > L2
     rows = {name: dict(max_abs_err=0) for name in ("serve_fused", "probe_and_commit")}
-    stream_srv = served["one_call"]["args"]
-    stream_pac = served["legacy"]["args"]
-    check(stream_srv is not None and stream_pac is not None, "captured the serving batch's launches")
-    cases = [("stream", stream_srv, stream_pac)]
-    for i, kind in enumerate(("uniform", "edge")):
-        args = kernel_args(kernel_case(SEED + i, 1 << 18, B, kind), device)
-        cases.append((kind, args, (args[0], *args[4:])))
     for label, sargs, pargs in cases:
         ks, val, f_slot, f_vals, *common = sargs
         # serve_fused: kernel vs plain on identical clones
@@ -1530,9 +1614,8 @@ def phase_kernels(device, served, topics, lm):
         seg_len = common[2]
         print(f"kernels/{label}: equal to plain (B={len(seg_len)} S={ks.shape[0]} "
               f"W={ks.shape[1] // 4} V={val.shape[1]}, segments={int((seg_len > 0).sum())} "
-              f"depth={int(seg_len.max())}, fill slots={int((f_slot < val.shape[0]).sum())})")
-        if label == "edge":
-            continue
+              f"depth={int(seg_len.max())}, fill slots={int((f_slot < val.shape[0]).sum())}); "
+              f"{deepest_mix(common)}")
         n = 100
         ks_t, val_t, pks_t = ks.clone(), val.clone(), pks.clone()
 
@@ -1545,11 +1628,12 @@ def phase_kernels(device, served, topics, lm):
 
         run_srv = lambda: srv.serve_fused(ks_t, val_t, f_slot, f_vals, *common)  # noqa: E731
         run_pac = lambda: pac.probe_and_commit(pks_t, *pcommon)  # noqa: E731
-        if label == "uniform":
-            for name, fn, restore in (("serve_fused", run_srv, restore_srv),
-                                      ("probe_and_commit", run_pac, restore_pac)):
-                print(f"kernels/{name}/uniform: device "
-                      f"{time_device(fn, n, flush, restore):.6f} ms/launch (L2 flushed)")
+        if label != "stream":
+            times = {name: time_device(fn, n, flush, restore)
+                     for name, fn, restore in (("serve_fused", run_srv, restore_srv),
+                                               ("probe_and_commit", run_pac, restore_pac))}
+            print(f"kernels/{label}: depth {int(seg_len.max())}, device ms/launch (L2 flushed): "
+                  + ", ".join(f"{k} {t:.6f}" for k, t in times.items()))
             continue
         rows["serve_fused"].update(
             ms=time_device(run_srv, n, flush, restore_srv),
@@ -1566,10 +1650,22 @@ def phase_kernels(device, served, topics, lm):
             bound_ms=kernel_bytes(pks, pcommon) / HBM_BYTES_PER_S * 1e3,
             wrapper_ms=time_host(run_pac, n, flush, restore_pac),
         )
+    return rows
+
+
+def phase_kernels(device, served, topics, lm):
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=device)  # 256 MiB > L2
+    stream_srv = served["one_call"]["args"]
+    stream_pac = served["legacy"]["args"]
+    check(stream_srv is not None and stream_pac is not None, "captured the serving batch's launches")
+    rows = check_commit_kernels(
+        itertools.chain([("stream", stream_srv, stream_pac)], commit_cases(device)), flush)
     for name, r in rows.items():
         print(f"kernels/{name}/stream: device {r['ms']:.6f} ms/launch (L2 flushed), with the "
               f"wrapper's host work {r['wrapper_ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
               f"byte bound {r['bound_ms']:.6f} ms")
+    print(f"kernels/empty launch: device {empty_launch_ms(device, flush):.6f} ms (the commit "
+          f"kernels' grid for B={B}, no work; L2 flushed)")
     rows["topic_score"] = check_topic_score(device, topics, flush)
     rows["decode_attention"] = check_decode_attention(device, lm, flush)
     del flush

@@ -2,10 +2,14 @@
 
 Replaces the Pallas TPU kernel ``repro.kernels.cache_ops.kernel.
 probe_and_commit`` (``src/repro/kernels/cache_ops/kernel.py:215``) with
-``probe_and_commit_kernel`` in ``repro_torch/csrc/cache_ops.cu``: one
-thread per segment (a run of same-set requests in arrival order) replays
-its requests against its set's row, kept in registers.  The source says
-what bounds it on an H100 (bytes) and what the design does about it.
+``probe_and_commit_kernel`` in ``repro_torch/csrc/cache_ops.cu``: one warp
+per segment (a run of same-set requests in arrival order) loads the
+segment's requests 32 at a time, a chunk ahead, probes them against the
+set's pristine row in parallel, and runs only the conflict rounds one after
+the other: each request's operands are shuffled from the lane that loaded
+it, and the evolving row lives in the warp's registers, way k on lane k, so
+a round is a few warp votes.  The source says what bounds it on an H100
+(bytes) and what sets its time (the serial chain through one set's row).
 
 A tensor on the CPU runs the plain version
 (:func:`repro_torch.kernels.cache_ops.ref.probe_and_commit_plain`); a

@@ -8,7 +8,11 @@ fill is ``fill_kernel`` and the probe/commit/gather is
 ``probe_and_commit_kernel<GATHER=true>`` (``repro_torch/csrc/cache_ops.cu``),
 two launches on one stream, so every block of the second reads the
 post-fill table.  The fill's slots are unique (``fill_winner_slots``), so it
-writes the value table in place.
+writes the value table in place.  The second launch is the commit kernel's
+schedule: one warp per segment, the loads issued in bulk a chunk of 32
+requests ahead, only the conflict rounds serial; each chunk's probed value
+rows are gathered by the warp (neighbouring lanes on neighbouring words)
+while its rounds run.
 
 A tensor on the CPU runs the plain version
 (:func:`repro_torch.kernels.cache_ops.ref.serve_fused_plain`); a tensor on

@@ -3,9 +3,11 @@ wrapper.
 
 Replaces the Pallas TPU kernel ``repro.kernels.topic_score.kernel.
 topic_score`` (``src/repro/kernels/topic_score/kernel.py:51``) with
-``topic_score_kernel`` in ``repro_torch/csrc/topic_score.cu``: a tiled
-IEEE-f32 product with the epilogue in the same launch.  The source says
-what bounds it on an H100 (operations) and what the design does about it.
+``topic_score_kernel`` in ``repro_torch/csrc/topic_score.cu``: one warp per
+document row streams the counts once and takes the FMAs of its non-zero
+counts only, in ascending word order, with the argmax and softmax epilogue
+in registers.  The source says what bounds it on an H100 (bytes: the dense
+counts read once) and what the design does about it.
 
 A tensor on the CPU runs the plain version
 (:func:`repro_torch.kernels.topic_score.ref.topic_score_plain`); a tensor

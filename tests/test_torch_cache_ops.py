@@ -13,7 +13,10 @@ on every output.  The references are
 
 Cases: a ragged final kernel tile, an all-pad batch, an all-static-hit
 batch, duplicate keys crowded into few sets, a fill plan with slot
-collisions, freshness off, and expiry with epochs below and above 2**31.
+collisions, freshness off, and expiry with epochs below and above 2**31;
+deep segments (one set taking 1 to 355 requests of a batch, and a whole
+batch in one set) at W = 4, 8, 16 and 32, with pads, static hits,
+non-admitted misses and stale hits inside the run.
 """
 import json
 
@@ -208,6 +211,115 @@ def test_serve_fused_matches_jnp_and_numpy_oracle(kind):
     _assert_same(
         {k: oracle[k] for k in ("pre_hit", "pre_way", "pre_stale", "pre_epoch", "wrote", "way")},
         got,
+    )
+
+
+def make_deep_case(depth, w, seed=0, s=48, v=3, b=400, static_share=0.2):
+    """A batch of ``b`` with ``depth`` requests in one set (``c["hot"]``),
+    in arrival order among the rest: Zipf draws over the set's
+    resident keys and three times as many new ones (in-batch re-inserts and
+    evictions), with pads, static hits, non-admitted misses, stale hits and
+    epochs and floors on both sides of 2**31 inside the run
+    (``static_share`` of it static hits).  The other requests spread over
+    the other sets."""
+    c = make_case("fresh_hi", seed=seed, s=s, w=w, v=v, b=b)
+    rng = np.random.default_rng(seed + 100)
+    e0 = 2**31 - 3
+    c["epoch"] = (e0 + rng.integers(-4, 5, size=(s, w))).astype(np.uint32)
+    c["epochs"] = (e0 + rng.integers(-3, 8, size=b)).astype(np.uint32)
+    c["min_epoch"] = (e0 + rng.integers(-5, 6, size=b)).astype(np.uint32)
+    c["min_epoch"][::17] = 0xFFFFFFFF  # the saturated floor
+    run = np.sort(rng.choice(b, depth, replace=False))
+    hot = int(rng.integers(0, s))
+    c["set_idx"] = np.where(c["set_idx"] == hot, (hot + 1) % s, c["set_idx"]).astype(np.int32)
+    c["set_idx"][run] = hot
+    pool_hi = np.concatenate([c["key_hi"][hot], _words(rng, 3 * w)])
+    pool_lo = np.concatenate([c["key_lo"][hot], _words(rng, 3 * w)])
+    pool_hi[pool_hi == 0] = 9  # an empty way is not a key
+    pick = np.minimum(rng.zipf(1.3, size=depth) - 1, 4 * w - 1)
+    c["h_hi"][run], c["h_lo"][run] = pool_hi[pick], pool_lo[pick]
+    c["h_hi"][run[3::7]] = c["h_lo"][run[3::7]] = 0xFFFFFFFF  # pads
+    c["static_hit"][run] = rng.random(depth) < static_share
+    c["admit"][run] = rng.random(depth) < 0.7
+    c["hot"] = hot
+    return c
+
+
+#: segment depths around the 32-request chunks the CUDA kernels walk
+DEEP = [1, 2, 3, 31, 32, 33, 64, 65, 355]
+
+
+@pytest.mark.parametrize(
+    "depth,w",
+    [(d, 8) for d in DEEP] + [(d, w) for w in (4, 16, 32) for d in (3, 33, 355)],
+)
+def test_deep_segments_match_jnp_and_numpy_oracle(depth, w):
+    c = make_deep_case(depth, w, seed=depth + w)
+    run = c["set_idx"] == c["hot"]
+    assert run.sum() == depth
+    pads = (c["h_hi"] == 0xFFFFFFFF) & (c["h_lo"] == 0xFFFFFFFF)
+    got = _port_probe_and_commit(c)
+    if depth >= 31:  # the run holds every kind of request
+        assert (pads & run).any() and (c["static_hit"] & run & ~pads).any()
+        assert (~c["admit"] & ~got["pre_hit"].numpy() & run & ~pads).any()
+        assert (got["pre_stale"].numpy() & run).any() and got["wrote"].numpy()[run].any()
+    want = jops.probe_and_commit_op(
+        *_jax_args(c), epochs=jnp.asarray(c["epochs"]),
+        min_epoch=jnp.asarray(c["min_epoch"]), use_kernel=False,
+    )
+    _assert_same(want, got)
+    oracle = jops.serve_fused_ref(
+        c["key_hi"], c["key_lo"], c["stamp"], c["value"], c["h_hi"], c["h_lo"],
+        c["set_idx"], c["admit"], c["static_hit"], int(c["clock"]),
+        epoch=c["epoch"], epochs=c["epochs"], min_epoch=c["min_epoch"],
+        f_set_idx=c["f_set"], f_wrote=c["f_wrote"], f_way=c["f_way"],
+        f_values=c["f_values"],
+    )
+    got = _port_serve(c)
+    assert np.array_equal(oracle["value"], got["value"].numpy())
+    assert np.array_equal(oracle["values"], got["values"].numpy())
+    _assert_same(
+        {k: oracle[k] for k in ("pre_hit", "pre_way", "pre_stale", "pre_epoch", "wrote", "way")},
+        got,
+    )
+    hi, lo, st = tops.unpack_words(got["ks"])
+    assert np.array_equal(oracle["key_hi"], u32(hi.contiguous()))
+    assert np.array_equal(oracle["stamp"], st.contiguous().numpy())
+    assert np.array_equal(oracle["epoch"], u32(tops.unpack_epoch(got["ks"]).contiguous()))
+
+
+@pytest.mark.parametrize("depth,share", [(80, 1.0), (355, 0.6)])
+def test_runs_of_static_hits_match_jnp(depth, share):
+    # the serving stream's deepest segment is its head query, a static hit
+    c = make_deep_case(depth, 8, seed=depth, static_share=share)
+    want = jops.serve_fused_op(
+        *_jax_args(c)[:1], jnp.asarray(c["value"]), *_jax_args(c)[1:],
+        **_jax_fill(c), epochs=jnp.asarray(c["epochs"]),
+        min_epoch=jnp.asarray(c["min_epoch"]), use_kernel=False,
+    )
+    _assert_same(want, _port_serve(c))
+
+
+@pytest.mark.parametrize("w", [4, 32])
+def test_whole_batch_in_one_set_matches_jnp_and_numpy_oracle(w):
+    # a topic partition of one set: every request of the batch in it
+    c = make_deep_case(300, w, seed=w, s=1, b=300)
+    assert (c["set_idx"] == 0).all()
+    got = _port_serve(c)
+    want = jops.serve_fused_op(
+        *_jax_args(c)[:1], jnp.asarray(c["value"]), *_jax_args(c)[1:],
+        **_jax_fill(c), epochs=jnp.asarray(c["epochs"]),
+        min_epoch=jnp.asarray(c["min_epoch"]), use_kernel=False,
+    )
+    _assert_same(want, got)
+    oracle = jops.probe_and_commit_ref(
+        c["key_hi"], c["key_lo"], c["stamp"], c["h_hi"], c["h_lo"], c["set_idx"],
+        c["admit"], c["static_hit"], int(c["clock"]), epoch=c["epoch"],
+        epochs=c["epochs"], min_epoch=c["min_epoch"],
+    )
+    _assert_same(
+        {k: oracle[k] for k in ("pre_hit", "pre_way", "pre_stale", "pre_epoch", "wrote", "way")},
+        _port_probe_and_commit(c),
     )
 
 

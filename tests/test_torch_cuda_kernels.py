@@ -186,6 +186,114 @@ def test_kernels_equal_plain_versions_on_the_card(cuda):
         assert torch.equal(a, b)
 
 
+def _deep_case(seed, s, w, v, b, runs, oob_set=None, static_share=0.2):
+    """``_case``'s state and batch with deep same-set runs: ``runs`` maps a
+    set to its depth, and each run's requests (spread over the batch in
+    arrival order) draw Zipf over the set's resident keys and three times
+    as many new ones, with pads, static hits, non-admitted misses and
+    epochs and floors on both sides of 2**31 among them (``static_share`` of
+    them static hits).  ``oob_set``
+    moves the first run to a set past the state (clamped on the gather,
+    dropped on the scatter)."""
+    case = _case(seed, s, w, v, b)
+    rng = np.random.default_rng(seed + 7)
+    e0 = 2**31 - 3
+    case["ks"][:, 3 * w :] = torch.from_numpy(
+        (e0 + rng.integers(-4, 5, size=(s, w))).astype(np.uint32).view(np.int32))
+    case["epochs"] = torch.from_numpy(
+        (e0 + rng.integers(-3, 8, size=b)).astype(np.uint32).view(np.int32))
+    case["min_epoch"] = torch.from_numpy(
+        (e0 + rng.integers(-5, 6, size=b)).astype(np.uint32).view(np.int32))
+    set_idx = case["set_idx"].numpy()
+    hot = np.array(list(runs))
+    spare = np.setdiff1d(np.arange(s), hot)
+    taken = np.isin(set_idx, hot)
+    set_idx[taken] = rng.choice(spare, size=int(taken.sum()))
+    free = rng.permutation(b)
+    h_hi, h_lo = case["h_hi"].numpy(), case["h_lo"].numpy()
+    for i, (hs, depth) in enumerate(runs.items()):
+        run, free = np.sort(free[:depth]), free[depth:]
+        set_idx[run] = hs
+        pool_hi = np.concatenate([case["ks"][hs, :w].numpy(), _words(rng, 3 * w).numpy()])
+        pool_lo = np.concatenate([case["ks"][hs, w : 2 * w].numpy(), _words(rng, 3 * w).numpy()])
+        pool_hi[pool_hi == 0] = 9  # an empty way is not a key
+        pick = np.minimum(rng.zipf(1.3, size=depth) - 1, 4 * w - 1)
+        h_hi[run], h_lo[run] = pool_hi[pick], pool_lo[pick]
+        h_hi[run[3::7]] = h_lo[run[3::7]] = -1  # pads
+        case["static_hit"][run] = torch.from_numpy(rng.random(depth) < static_share)
+        case["admit"][run] = torch.from_numpy(rng.random(depth) < 0.7)
+        if i == 0 and oob_set is not None:
+            set_idx[run] = oob_set
+    return case
+
+
+def _assert_kernels_equal_plain(case, dev):
+    ks_k, val_k, f_slot, f_vals, common = _kernel_args(case, dev)
+    ks_p, val_p = ks_k.clone(), val_k.clone()
+    got = serve_kernel.serve_fused(ks_k, val_k, f_slot, f_vals, *common)
+    want = ref.serve_fused_plain(ks_p, val_p, f_slot, f_vals, *common)
+    torch.cuda.synchronize()
+    assert torch.equal(ks_k, ks_p) and torch.equal(val_k, val_p)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    ks_k, _, _, _, common = _kernel_args(case, dev)
+    ks_p = ks_k.clone()
+    got = pac_kernel.probe_and_commit(ks_k, *common)
+    want = ref.probe_and_commit_plain(ks_p, *common)
+    torch.cuda.synchronize()
+    assert torch.equal(ks_k, ks_p)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+#: segment depths around the 32-request chunks a warp walks, and a whole
+#: batch of 512 in one set
+DEEP_DEPTHS = [1, 2, 3, 31, 32, 33, 64, 65, 355, 512]
+
+
+@pytest.mark.parametrize("depth", DEEP_DEPTHS)
+@pytest.mark.parametrize("w", [4, 8, 16, 32])
+def test_deep_segments_on_the_card_equal_plain(cuda, depth, w):
+    case = _deep_case(10 + depth, 64, w, 8, 512, {5: depth})
+    assert int((case["set_idx"] == 5).sum()) == depth
+    _assert_kernels_equal_plain(case, cuda)
+
+
+def test_short_and_deep_segments_in_one_launch_on_the_card(cuda):
+    # a serving batch's shape: thousands of one- to three-request segments
+    # beside a few deep ones, one of them the whole warp's chunk plus one
+    case = _deep_case(20, 1 << 14, 8, 8, 4096, {7: 33, 300: 100, 9000: 355, 16000: 80})
+    _, _, _, _, common = _kernel_args(case, "cpu")
+    seg_len = common[2]
+    assert int((seg_len > 0).sum()) > 2000 and int(seg_len.max()) == 355
+    _assert_kernels_equal_plain(case, cuda)
+
+
+@pytest.mark.parametrize("v", [0, 1, 9, 40])
+def test_value_rows_of_any_width_on_the_card(cuda, v):
+    # the serve kernel holds 8 words a lane across the walk; wider rows take
+    # the rest after it; rows of no words leave only the commit to launch
+    case = _deep_case(50 + v, 64, 8, v, 512, {5: 100, 9: 33})
+    _assert_kernels_equal_plain(case, cuda)
+
+
+@pytest.mark.parametrize("depth,share", [(80, 1.0), (355, 1.0), (100, 0.9), (355, 0.6)])
+def test_runs_of_static_hits_on_the_card(cuda, depth, share):
+    # a serving batch's deepest segment is its head query, a static hit: a
+    # run of requests that do not write is resolved at once
+    case = _deep_case(40 + depth, 64, 8, 8, 512, {5: depth}, static_share=share)
+    _assert_kernels_equal_plain(case, cuda)
+
+
+@pytest.mark.parametrize("depth", [40, 355])
+def test_deep_segment_out_of_range_on_the_card(cuda, depth):
+    # the run's set is past the state: its rows clamp on the gather and its
+    # writes drop
+    case = _deep_case(30 + depth, 64, 8, 8, 512, {5: depth, 6: 20}, oob_set=64 + 3)
+    assert int((case["set_idx"] == 67).sum()) == depth
+    _assert_kernels_equal_plain(case, cuda)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     case = _case(4, 16, 4, 2, 40)
     ks, val, f_slot, f_vals, common = _kernel_args(case, cuda)
