@@ -32,6 +32,31 @@ Phases (any failure raises and exits non-zero):
 6. cpu: the first batches on a ``Broker(device="cpu")`` (the plain
    versions) from the same warm state; hit masks, values and the flushed
    state words must be identical to the card's;
+   broker: the whole single-card broker at the same size.  A
+   ``ServingSpec`` (``CacheSpec.from_strategy("STDv_LRU", 2**22, f_s=0.5,
+   f_t=0.4)``, W 8, V 8) compiles through ``Broker.from_spec`` to the
+   cache ``plan_cache`` plans (config and static keys checked) and its
+   JSON round-trips.  The broker takes the warm state and a tracker fed
+   the warm batches' topics; ``rebalance(force=True)`` re-splits the topic
+   layer by the tracked popularity and migrates every live entry in one
+   ``probe_and_commit`` launch (checked), whose new state (``ks``,
+   ``value``, ``clock``) must equal, bit for bit, that of an
+   ``engine="host"`` broker's numpy rebalance of the same state.  Prints
+   the live entries, the migration batch's segments, deepest segment and
+   pads, ``rebalance()``'s host-clock split (``extract_live``, planning,
+   commit) and the launch's device time (CUDA events, replayed on the
+   pre-migration words, L2 flushed) beside its byte bound, and again
+   without the bucket's pad tail.  Both brokers then serve the 64
+   measured batches (hit masks, values and every ``BrokerStats`` counter
+   equal; the hit rate split by layer beside the serve phase's),
+   invalidate 4096 served ids (counts and states equal), an unfused
+   (``fused=False``) broker serves 8 batches from the one-call broker's
+   state (hits and values equal, its commits launching the kernel), and
+   a checkpoint (``save`` under ``build/``, removed after) restores into a
+   fresh ``from_spec`` broker that serves 8 batches as the broker that
+   never restarted; a flipped byte in ``arrays.npz`` must raise and
+   ``latest_verified_step`` skip it.  Save and restore seconds and the
+   checkpoint's size are printed;
 7. topics: the paper's topic pipeline on the card, as the serving CLI
    starts up.  ``generate`` draws the same log with its clicked documents
    (V = 4096 words); its keys must equal the served stream's.
@@ -118,7 +143,10 @@ Phases (any failure raises and exits non-zero):
    RMS; timed on the path's call beside its byte
    bound, the plain version and ``scaled_dot_product_attention``.
 
-The last three lines are one JSON object ``{"kernels": [...]}``, the
+The last three lines are one JSON object ``{"kernels": [...]}`` (each
+cache kernel's ``launches`` summed over the serve and broker phases, each
+counted from 0 just before its path; ``probe_and_commit``'s row also
+carries the migration launch's times), the
 card's name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -130,8 +158,11 @@ import dataclasses
 import gc
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -565,6 +596,273 @@ def phase_cpu(cfg, static, true_topic, warm, served):
     broker.close()
     print(f"cpu: {N_CPU_BATCHES} batches on the plain versions from the warm state identical "
           f"to the card (hit masks, values, flushed state words), {time.perf_counter() - t0:.3f} s")
+
+
+# -- phase broker: the whole single-card broker ----------------------------------
+
+
+def stats_equal(a, b) -> bool:
+    """Every ``BrokerStats`` counter (and the tracker's counts) equal."""
+    da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+    return da.keys() == db.keys() and all(np.array_equal(da[k], db[k]) for k in da)
+
+
+def same_state(a, b, what: str) -> None:
+    from repro_torch.serving import state_to_numpy
+
+    x, y = state_to_numpy(a), state_to_numpy(b)
+    for k in x:
+        check(np.array_equal(x[k], y[k]), f"{what}: state {k} differs")
+
+
+def serve_both(card, host, batches):
+    """Serve ``batches`` on both brokers; hit masks and values must agree.
+    Returns the card's hit masks and host-clock seconds per broker."""
+    hits, secs = [], {"card": 0.0, "host": 0.0}
+    for q in batches:
+        out = []
+        for name, b in (("card", card), ("host", host)):
+            t0 = time.perf_counter()
+            out.append(b.serve(q))
+            secs[name] += time.perf_counter() - t0
+        (v0, h0), (v1, h1) = out
+        check(np.array_equal(v0, backend(q)), "a served value differs from the backend's")
+        check(np.array_equal(h0, h1) and np.array_equal(v0, v1),
+              "the card's broker and the host engine's serve differently")
+        hits.append(h0)
+    return hits, secs
+
+
+def tamper(step_dir: str) -> None:
+    """Flip one byte of the packed words in ``arrays.npz`` and rewrite the
+    archive (it stays readable: only the manifest's crc32 can tell)."""
+    path = os.path.join(step_dir, "arrays.npz")
+    with np.load(path) as data:
+        arrays = {k: np.array(data[k]) for k in data.files}
+    arrays["cache/ks"].reshape(-1).view(np.uint8)[12345] ^= 0xFF
+    np.savez(path + ".tmp.npz", **arrays)
+    os.replace(path + ".tmp.npz", path)
+
+
+def migration_depth(common) -> int:
+    """The deepest segment of a planned batch counting only its real
+    (non-pad) requests."""
+    order, _, seg_len, _, h_hi, h_lo = (x.cpu().numpy() for x in common[:6])
+    lens = seg_len[seg_len > 0]
+    pad = ((h_hi == -1) & (h_lo == -1))[order]
+    seg_of = np.repeat(np.arange(len(lens)), lens)
+    return int(np.bincount(seg_of[~pad], minlength=len(lens)).max())
+
+
+def without_pads(common, n_real: int):
+    """A planned commit batch's real requests (the first ``n_real``, the
+    bucket's pads cut off), planned anew: the same launch's work without
+    its pad tail."""
+    from repro_torch.kernels.cache_ops import plan_segments
+
+    order, leader, seg_len, seg_set, *fields = common
+    req = fields[:6]  # h_hi, h_lo, admit, static_hit, epochs, min_epoch
+    lens = seg_len[seg_len > 0].to(torch.int64)
+    req_set = torch.empty_like(order)
+    req_set[order.to(torch.int64)] = torch.repeat_interleave(seg_set[: len(lens)], lens)
+    plan = plan_segments(req_set[:n_real].contiguous())
+    return (plan[0], *plan[2:], *(t[:n_real].contiguous() for t in req), fields[6])
+
+
+def phase_broker(device, stats, ccfg, static, true_topic, train, warm, serve, served):
+    """The whole single-card broker, built from a ``ServingSpec`` at the
+    serve phase's size: a live rebalance of the warmed cache (one
+    ``probe_and_commit`` launch, held to the numpy host engine), serving
+    after it, key invalidation, the unfused path and a checkpoint."""
+    from repro_torch.core.spec import CacheSpec
+    from repro_torch.kernels.cache_ops import kernel as pac
+    from repro_torch.kernels.cache_ops import ops
+    from repro_torch.kernels.cache_ops import serve_kernel as srv
+    from repro_torch.serving import (Broker, BucketSpec, RebalanceSpec, ServingSpec,
+                                     STDDeviceCache, state_from_numpy)
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    batches = served["one_call"]["batches"]
+    extra = [serve[i : i + B] for i in range(N_BATCHES * B, len(serve), B)]
+    # 1. the spec compiles to the serve phase's cache; scheduled rebalance
+    # checks never fire here (rebalance(force=True) runs the migration)
+    spec = ServingSpec(
+        cache=CacheSpec.from_strategy("STDv_LRU", ENTRIES, f_s=0.5, f_t=0.4),
+        ways=WAYS, value_dim=VDIM, microbatch=B, bucket=BucketSpec(),
+        rebalance=RebalanceSpec(every=1 << 30),
+    )
+    check(ServingSpec.from_json(spec.to_json()) == spec, "ServingSpec JSON round trip")
+
+    def build(dev, **kw):
+        return Broker.from_spec(dataclasses.replace(spec, **kw), stats, [backend],
+                                value_fn=backend, device=dev)
+
+    t0 = time.perf_counter()
+    card = build(device)
+    build_s = time.perf_counter() - t0
+    check(card.cache.cfg == ccfg, "the spec's DeviceCacheConfig differs from plan_cache's")
+    check(np.array_equal(np.sort(spec.cache.device_static_keys(stats)), np.sort(static)),
+          "the spec's static keys differ from plan_cache's")
+    host = build("cpu", engine="host")
+    print(f"broker/spec: ServingSpec(STDv_LRU, n={ENTRIES}, f_s 0.5, f_t 0.4, W {WAYS}, V "
+          f"{VDIM}) -> Broker.from_spec in {build_s:.3f} s; DeviceCacheConfig and "
+          f"{len(static)} static keys equal to plan_cache's; JSON round-trips")
+
+    # 2. a live rebalance of the warmed cache, the tracker fed the warm batches
+    tail = train[len(train) - N_WARM * B :]
+    for i in range(N_WARM):
+        card.tracker.observe(true_topic[tail[i * B : (i + 1) * B]])
+    host.tracker.load(card.tracker.counts)
+    card.state = state_from_numpy(warm, device)
+    host.state = state_from_numpy(warm, "cpu")
+    live = int((warm["ks"][:, :WAYS] != 0).sum())
+    secs = {"extract_live": 0.0, "commit": 0.0}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - t
+            return out
+        return run
+
+    pac.launches = srv.launches = 0
+    old_cfg = card.cache.cfg
+    with patched(STDDeviceCache, "extract_live", timed("extract_live", STDDeviceCache.extract_live)), \
+            patched(STDDeviceCache, "commit_vectorized",
+                    timed("commit", STDDeviceCache.commit_vectorized)), \
+            Capture(ops, "_probe_and_commit", 0) as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = card.rebalance(force=True)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    mig_launches = pac.launches
+    check(moved and card.cache.cfg != old_cfg, "the tracked popularity re-split the topic layer")
+    check(mig_launches == 1, f"the migration is one probe_and_commit launch ({mig_launches})")
+    t0 = time.perf_counter()
+    check(host.rebalance(force=True), "the host engine's broker rebalanced")
+    host_s = time.perf_counter() - t0
+    check(card.cache.cfg == host.cache.cfg, "both brokers moved to the same allocation")
+    same_state(card.state, host.state, "the migration (card kernel vs numpy host engine)")
+    pks, *pcommon = cap.args
+    seg_len = pcommon[2]
+    n_pad = int(len(seg_len)) - live
+    shrunk = sum(1 for t, c in card.cache.cfg.topic_entries.items() if c < old_cfg.topic_entries[t])
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=device)  # 256 MiB > L2
+    ks_t = pks.clone()
+    mig_ms = time_device(lambda: pac.probe_and_commit(ks_t, *pcommon), 10, flush,
+                         lambda: ks_t.copy_(pks))
+    mig_bound = kernel_bytes(pks, pcommon) / HBM_BYTES_PER_S * 1e3
+    real = without_pads(pcommon, live)
+    nopad_ms = time_device(lambda: pac.probe_and_commit(ks_t, *real), 10, flush,
+                           lambda: ks_t.copy_(pks))
+    nopad_bound = kernel_bytes(pks, real) / HBM_BYTES_PER_S * 1e3
+    ks_t.copy_(pks)
+    pac.probe_and_commit(ks_t, *real)  # the same words without the pads
+    check(torch.equal(ks_t, card.state["ks"]), "the migration without its pad tail lands alike")
+    del flush
+    print(f"broker/rebalance: {live} live entries before, migrated {card.stats.migrated} "
+          f"into the new layout ({shrunk} of {len(old_cfg.topic_entries)} topic partitions "
+          f"shrunk); migration batch B={len(seg_len)} ({n_pad} pads, the bucket's tail, all in "
+          f"one set), segments={int((seg_len > 0).sum())}, {deepest_mix(pcommon)}, deepest "
+          f"without pads {migration_depth(pcommon)}; "
+          f"rebalance() {total:.6f} s on the host clock: extract_live "
+          f"{secs['extract_live']:.6f}, planning {total - secs['extract_live'] - secs['commit']:.6f}, "
+          f"commit {secs['commit']:.6f}; the migration's probe_and_commit launch "
+          f"{mig_ms:.6f} ms (CUDA events, L2 flushed, pre-migration words restored), byte "
+          f"bound {mig_bound:.6f} ms; the same {live} migrants without the pad tail "
+          f"{nopad_ms:.6f} ms (bound {nopad_bound:.6f}); the host engine's rebalance "
+          f"{host_s:.3f} s; state (ks, value, clock) bit-equal to the numpy host engine's")
+
+    # 3. serving after the rebalance, the card against the host engine
+    srv.launches = 0
+    hits, secs_b = serve_both(card, host, batches)
+    check(stats_equal(card.stats, host.stats), "BrokerStats differ after serving")
+    serve_launches = srv.launches
+    check(serve_launches == len(batches), "one serve_fused launch per batch after the rebalance")
+    one = served["one_call"]
+    print(f"broker/serve: {len(batches)} batches x {B} after the rebalance, "
+          f"{layer_split(batches, hits, true_topic, static, card.stats)}; before it: "
+          f"{layer_split(batches, one['hits'], true_topic, static, one['stats'])}; hit masks, "
+          f"values and every BrokerStats counter equal to the host engine's; "
+          f"{secs_b['card'] / len(batches) * 1e3:.3f} ms/batch on the card broker, "
+          f"{secs_b['host'] / len(batches) * 1e3:.3f} on the host engine (host clock)")
+
+    # 4. key invalidation of 4096 served ids
+    keys = batches[-1]
+    n_card, n_host = card.invalidate(keys=keys), host.invalidate(keys=keys)
+    check(n_card == n_host > 0, f"invalidate zeroed {n_card} slots on the card, {n_host} on the host")
+    same_state(card.state, host.state, "after invalidate(keys=...)")
+    print(f"broker/invalidate: {len(keys)} served ids zeroed {n_card} resident slots on both "
+          f"brokers; states equal")
+    host.close()
+
+    # 5. the unfused path from the same state as the one-call broker
+    unf = Broker(card.cache, [backend], card.topic_of, fused=False, bucket=BucketSpec(),
+                 microbatch=B, device=device)
+    card.flush()
+    unf.state = Broker._own_state(card.state)
+    pac.launches = 0
+    srv.launches = 0
+    for q in extra[:8]:
+        v0, h0 = card.serve(q)
+        v1, h1 = unf.serve(q)
+        check(np.array_equal(h0, h1) and np.array_equal(v0, v1),
+              "the unfused path serves differently from the one-call path")
+    unf_launches = pac.launches
+    check(unf_launches > 0 and unf.dispatch_counts.get("commit", 0) > 0,
+          "the unfused path's commits launched probe_and_commit")
+    print(f"broker/unfused: {len(extra[:8])} batches with fused=False equal to the one-call "
+          f"path (hits, values); {unf.dispatch_counts.get('commit')} commits, "
+          f"{unf_launches} probe_and_commit launches")
+    unf.close()
+    serve_launches += srv.launches
+
+    # 6. a checkpoint, restored into a fresh broker built from the spec
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        step_dir = card.save(tmp, 1)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        fresh = build(device)
+        t0 = time.perf_counter()
+        check(fresh.restore(tmp) == 1, "restored step 1")
+        restore_s = time.perf_counter() - t0
+        check(fresh.cache.cfg == card.cache.cfg, "the restore kept the rebalanced layout")
+        check(stats_equal(fresh.stats, card.stats), "the restore brought the stats back")
+        srv.launches = 0
+        for q in batches[:8]:
+            v0, h0 = card.serve(q)
+            v1, h1 = fresh.serve(q)
+            check(np.array_equal(h0, h1) and np.array_equal(v0, v1),
+                  "the restored broker serves differently")
+        serve_launches += srv.launches
+        card.flush()
+        fresh.flush()
+        same_state(card.state, fresh.state, "after the restore and 8 batches")
+        card.save(tmp, 2)
+        tamper(os.path.join(tmp, "step_0000000002"))
+        try:
+            fresh.restore(tmp, step=2)
+            check(False, "a flipped byte in arrays.npz must raise")
+        except ValueError as e:
+            check("checksum" in str(e), f"the corrupt restore raised {e}")
+        check(ckpt_lib.latest_verified_step(tmp) == 1, "latest_verified_step skips the corrupt step")
+        fresh.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"broker/checkpoint: save {save_s:.3f} s, restore {restore_s:.3f} s (into a fresh "
+          f"from_spec broker), {size / 1e6:.3f} MB; the restored broker served 8 batches as the "
+          f"one that never restarted (hits, values, state); a flipped byte in arrays.npz "
+          f"raised ValueError and latest_verified_step fell back to step 1")
+    card.close()
+    launches = {"serve_fused": serve_launches, "probe_and_commit": mig_launches + unf_launches}
+    print(f"broker/launches: {launches}")
+    return dict(launches=launches, migration_ms=mig_ms, migration_bound_ms=mig_bound,
+                migration_nopad_ms=nopad_ms)
 
 
 # -- phase 7: the topic pipeline --------------------------------------------------
@@ -1708,7 +2006,8 @@ def main() -> int:
     check(abs(share - cfg.topical_fraction) <= TOPICAL_TOL,
           f"served topical share {share:.6f} is not the config's {cfg.topical_fraction}")
     t0 = time.perf_counter()
-    ccfg, static, n_distinct = plan_cache(VecStats.from_log(VecLog(keys, n_train, true_topic)))
+    vstats = VecStats.from_log(VecLog(keys, n_train, true_topic))
+    ccfg, static, n_distinct = plan_cache(vstats)
     cache = make_cache(device, ccfg, static)
     print(f"cache: {ccfg.total_entries} entries = {cache.n_sets} sets x {WAYS} ways + "
           f"{len(static)} static keys, {cache.k} topic partitions; "
@@ -1725,6 +2024,9 @@ def main() -> int:
     warm = phase("warm", phase_warm, first, train)
     served = phase("serve", phase_serve, device, cache, true_topic, first, warm, serve)
     phase("cpu", phase_cpu, ccfg, static, true_topic, warm, served)
+    brk = phase("broker", phase_broker, device, vstats, ccfg, static, true_topic, train, warm,
+                serve, served)
+    del vstats
     topics = phase("topics", phase_topics, device, cfg, keys, true_topic, n_train, served,
                    static)
     lm = phase("lm", phase_lm, device, served["one_call"]["miss_ids"])
@@ -1745,6 +2047,7 @@ def main() -> int:
 
     kernels = []
     # each kernel's launches come from the run of the path that uses it
+    # (the serve phase's path and the broker phase's, each counted from 0)
     for name, path, replaces in (
         ("serve_fused", "one_call", "src/repro/kernels/cache_ops/serve_kernel.py:203"),
         ("probe_and_commit", "legacy", "src/repro/kernels/cache_ops/kernel.py:215"),
@@ -1752,10 +2055,14 @@ def main() -> int:
         r = rows[name]
         kernels.append(dict(
             name=name, route="cuda", source="src/repro_torch/csrc/cache_ops.cu",
-            replaces=replaces, launches=served[path]["launches"][name],
+            replaces=replaces,
+            launches=served[path]["launches"][name] + brk["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=None,
         ))
+    kernels[-1].update(migration_ms=brk["migration_ms"],
+                       migration_bound_ms=brk["migration_bound_ms"],
+                       migration_nopad_ms=brk["migration_nopad_ms"])
     r = rows["topic_score"]
     kernels.append(dict(
         name="topic_score", route="cuda", source="src/repro_torch/csrc/topic_score.cu",

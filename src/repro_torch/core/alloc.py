@@ -1,7 +1,8 @@
 """Topic-cache entry allocation (paper Sec. 3.3, "Estimating Topic Popularity").
 
-A copy of ``repro.core.alloc.proportional_allocation``, the one piece the
-port's device cache needs.
+A copy of ``repro.core.alloc``: ``proportional_allocation`` (the device
+cache's topic split), ``allocation_divergence`` (the rebalance trigger) and
+``uniform_allocation`` (STDf specs).
 
 Each topic gets ``|T.tau| = round(|T| * q_tau / q)`` entries, where ``q_tau``
 is the number of *distinct* training queries in topic ``tau`` and ``q`` the
@@ -46,3 +47,31 @@ def proportional_allocation(
         order = np.lexsort((np.arange(len(topics)), -counts, -frac))
         base[order[:remainder]] += 1
     return {t: int(s) for t, s in zip(topics, base)}
+
+
+def allocation_divergence(a: Mapping[int, float], b: Mapping[int, float]) -> float:
+    """L1 distance between two allocations' normalized shares, in [0, 2].
+
+    Scale-free: ``a`` and ``b`` may be entry counts, request counts, or
+    decayed popularity estimates -- only the *shapes* of the distributions
+    are compared.  Used by the serving tier's rebalance trigger to decide
+    whether tracked live popularity has drifted far enough from the
+    current topic allocation to be worth a migration.
+    """
+    ta = float(sum(a.values()))
+    tb = float(sum(b.values()))
+    if ta <= 0 or tb <= 0:
+        # one side is empty: identical iff both are, else maximally apart
+        return 0.0 if ta == tb else 2.0
+    keys = set(a) | set(b)
+    return float(sum(abs(a.get(k, 0) / ta - b.get(k, 0) / tb) for k in keys))
+
+
+def uniform_allocation(total_entries: int, topics) -> Dict[int, int]:
+    """STDf: every topic gets |T|/k entries (floor; paper divides equally)."""
+    topics = sorted(topics)
+    k = len(topics)
+    if k == 0:
+        return {}
+    each = total_entries // k
+    return {t: each for t in topics}

@@ -1,12 +1,14 @@
-"""Integer-encoded query log and its training statistics.
+"""Integer-encoded query log, its training statistics and the layout type.
 
-A copy of ``VecLog`` and ``VecStats`` from ``repro.core.fast`` (numpy):
-the cache's planning inputs.  ``VecStats.from_log`` gives the reference's
+A copy of ``VecLog``, ``VecStats``, ``Layout`` and the layout's routing
+constants from ``repro.core.fast`` (numpy): the cache's planning inputs and
+what ``CacheSpec.to_layout`` compiles to.  ``VecStats.from_log`` gives the reference's
 arrays exactly; its per-topic ranks come from one stable grouping of the
 frequency order instead of one full pass over the keys per topic, which
 at 96 topics and 68.6M query ids is the difference between seconds and
-minutes.  The layouts and trace analytics of ``repro.core.fast`` are not
-copied yet.
+minutes.  The trace analytics of ``repro.core.fast`` (``make_layout``,
+``analyze``, the hit rates) are not copied yet (ROADMAP.md, Queue 1 item
+11).
 """
 from __future__ import annotations
 
@@ -16,6 +18,12 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..querylog.synth import NO_TOPIC
+
+# Special partition ids (>= 0 are LRU partitions; topic t -> partition t,
+# dynamic cache -> partition DYNAMIC_PART).
+ALWAYS_HIT = -1
+NO_CACHE = -2
+DYNAMIC_PART = 10**9  # sentinel well above any topic id
 
 
 @dataclass
@@ -101,3 +109,16 @@ class VecStats:
             topic_rank=topic_rank,
             topic_distinct=topic_distinct,
         )
+
+
+@dataclass
+class Layout:
+    """A concrete cache configuration, vectorized over keys."""
+
+    #: per-key routing: ALWAYS_HIT / NO_CACHE / partition id
+    key_part: np.ndarray
+    #: capacity per partition id
+    capacity: Dict[int, int]
+
+    def total_entries(self) -> int:
+        return sum(self.capacity.values())

@@ -1,6 +1,7 @@
-"""Serving runtime of the port: the device-resident STD cache and the
-broker's fused serving paths (see :mod:`.broker` for what is not ported
-yet)."""
+"""Serving runtime of the port: the device-resident STD cache, the broker
+(fused and unfused paths, the host engine, live rebalancing, key
+invalidation, checkpoints) and the serving specs.  The sharded cluster is
+not ported yet (ROADMAP.md, Queue 1 item 7)."""
 from .broker import Backend, Broker, BrokerStats, HedgePolicy
 from .device_cache import (
     DYNAMIC,
@@ -14,28 +15,41 @@ from .device_cache import (
     splitmix64,
     state_from_numpy,
     state_to_numpy,
+    unpack_state,
 )
-from .spec import BucketSpec
+from .rebalance import PopularityTracker, RebalanceSpec
+from .resilience import ResilienceCounters, ResilienceSpec, ShardHealth
+from .spec import BatchPolicySpec, BucketSpec, DispatchSpec, HedgeSpec, ServingSpec
 from ..core.spec import PAD_KEY
 from ..freshness import FreshnessSpec
 
 __all__ = [
     "Backend",
+    "BatchPolicySpec",
     "Broker",
     "BrokerStats",
     "BucketSpec",
     "DYNAMIC",
     "DeviceCacheConfig",
+    "DispatchSpec",
     "FreshnessSpec",
     "HedgePolicy",
+    "HedgeSpec",
     "PAD_H64",
     "PAD_HI",
     "PAD_KEY",
     "PAD_LO",
+    "PopularityTracker",
+    "RebalanceSpec",
+    "ResilienceCounters",
+    "ResilienceSpec",
     "STDDeviceCache",
+    "ServingSpec",
+    "ShardHealth",
     "pack_hashes",
     "pad_batch",
     "splitmix64",
     "state_from_numpy",
     "state_to_numpy",
+    "unpack_state",
 ]

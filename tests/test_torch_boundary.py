@@ -28,6 +28,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.kernels.embedding_bag, repro_torch.models.recsys\n"
         "import repro_torch.configs.two_tower_retrieval, repro_torch.configs.sasrec\n"
         "import repro_torch.configs.din, repro_torch.configs.mind\n"
+        "import repro_torch.core.spec, repro_torch.core.alloc, repro_torch.train\n"
+        "import repro_torch.train.checkpoint, repro_torch.serving.spec\n"
+        "import repro_torch.serving.rebalance, repro_torch.serving.resilience\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

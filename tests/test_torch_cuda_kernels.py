@@ -8,7 +8,12 @@ machine with an H100 (the kernels build for sm_90a):
 
 Every output of the cache kernels -- the packed state, the value table,
 the per-request probe outputs and the write plan -- must be equal
-(tolerance 0: integer state).  The topic-score kernel is held to the
+(tolerance 0: integer state), also on migration-shaped batches (a
+partition shrunk 8x and 64x behind a tail of pads in one set); at a pad
+tail of ~2**16 and a batch of 2**18, where the plain version (O(depth x
+B)) would take minutes, ``bulk_insert`` through the kernel is held to the
+numpy host engine instead, as is a card broker's live ``rebalance()``.
+The topic-score kernel is held to the
 tolerances of ``tests/test_kernels.py``: scores rtol 1e-4; ``top`` exact,
 except where the plain version's top two scores lie within 1e-4 relative
 (the two sum in different orders); the confidence within rtol 1e-4 of the
@@ -29,6 +34,8 @@ NaN (an id past the table) is compared as NaN, since the card's bf16
 conversions write different NaN bits.  This file imports no JAX: the
 machine with the card has none.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -57,6 +64,7 @@ from repro_torch.serving import (  # noqa: E402
     BucketSpec,
     DeviceCacheConfig,
     FreshnessSpec,
+    RebalanceSpec,
     STDDeviceCache,
     splitmix64,
     state_to_numpy,
@@ -352,6 +360,135 @@ def test_broker_on_card_equals_broker_on_cpu(cuda, one_call, fresh):
         assert np.array_equal(a[k], b[k]), k
     gpu.close()
     cpu.close()
+
+
+# -- migrations: the bulk insert of a live rebalance ------------------------------
+
+
+def _migration_case(seed, s, w, n_real, n_pad, shrink, small_sets=4):
+    """A migration batch into an empty layout of ``s`` sets: ``n_real``
+    distinct live entries in stamp order, a partition of ``small_sets``
+    sets shrunk by ``shrink`` (W * shrink entries land in each of its sets,
+    the last W of each surviving), the rest spread over the other sets, and
+    a tail of ``n_pad`` pads all in one set (the dynamic partition's), as
+    ``bulk_insert`` pads a batch to its bucket."""
+    rng = np.random.default_rng(seed)
+    b = n_real + n_pad
+    per_set = w * shrink
+    n_small = small_sets * per_set
+    set_idx = np.concatenate([
+        np.repeat(np.arange(small_sets), per_set),
+        rng.integers(small_sets, s, size=n_real - n_small),
+    ])[rng.permutation(n_real)]
+    h_hi, h_lo = _words(rng, n_real), _words(rng, n_real)
+    h_hi[h_hi == 0] = 1
+    pad_set = int(rng.integers(small_sets, s))
+    return dict(
+        ks=torch.zeros((s, 4 * w), dtype=torch.int32),
+        h_hi=torch.cat([h_hi, torch.full((n_pad,), -1, dtype=torch.int32)]),
+        h_lo=torch.cat([h_lo, torch.full((n_pad,), -1, dtype=torch.int32)]),
+        set_idx=torch.from_numpy(np.concatenate([set_idx, np.full(n_pad, pad_set)])
+                                 .astype(np.int32)),
+        admit=torch.cat([torch.ones(n_real, dtype=torch.bool),
+                         torch.zeros(n_pad, dtype=torch.bool)]),
+        static_hit=torch.zeros(b, dtype=torch.bool),
+        clock=torch.tensor(0, dtype=torch.int32),
+        epochs=torch.cat([_words(rng, n_real), torch.zeros(n_pad, dtype=torch.int32)]),
+        min_epoch=torch.zeros(b, dtype=torch.int32),
+    )
+
+
+@pytest.mark.parametrize("shrink", [8, 64])
+def test_probe_and_commit_on_migration_batches_equals_plain(cuda, shrink):
+    """A partition shrunk 8x (segments 64 deep) and 64x (512 deep), with a
+    pow2 tail of 1024 pads in one set, against the plain version."""
+    case = _migration_case(7, 2048, 8, 7168, 1024, shrink)
+    before = pac_kernel.launches
+    got = probe_and_commit_op(**_to(case, cuda))
+    torch.cuda.synchronize()
+    assert pac_kernel.launches == before + 1
+    want = probe_and_commit_op(**_to(case, "cpu"))
+    _assert_equal(got, want)
+    assert int(want["wrote"].sum()) == 7168  # every migrant lands, no pad does
+
+
+def _migration_caches(device, live, shrink):
+    """A layout whose topic 0 is shrunk ``shrink``x from the one the
+    ``live`` entries came from: 64 small sets, the rest topic 1 and the
+    dynamic partition (where the bucket's pads go)."""
+    cfg = DeviceCacheConfig(
+        total_entries=2 * live, ways=8, value_dim=4,
+        topic_entries={0: 64 * 8, 1: live // 2}, dynamic_entries=live // 2,
+        static_entries=2 * live - 64 * 8 - live,
+    )
+    return STDDeviceCache(cfg, device=device)
+
+
+@pytest.mark.parametrize("n_real", [(1 << 16) + 1000, (1 << 17) + 5000],
+                         ids=["pad_tail_2^16", "B_2^18"])
+def test_bulk_insert_on_card_equals_host_engine(cuda, n_real):
+    """The real migration path, ``bulk_insert`` with the pow2 bucket, on the
+    card (one ``probe_and_commit`` launch) against the numpy host engine:
+    2**16 - 1000 pads in one set behind 2**16 + 1000 migrants, and a batch
+    of 2**18.  The plain version replays every segment slot each round
+    (O(depth x B)), minutes at these depths, so these two are held to the
+    host engine, itself bit-exact with the reference (CPU tests)."""
+    rng = np.random.default_rng(11)
+    h64 = splitmix64(rng.permutation(1 << 24)[:n_real])
+    # a sixth of the migrants are topic 0's: ~W * 25 per small set
+    topics = np.where(rng.random(n_real) < 1 / 6, 0, rng.choice([1, -1], n_real))
+    vals = rng.integers(0, 1 << 30, size=(n_real, 4)).astype(np.int32)
+    eps = rng.integers(0, 1 << 32, size=n_real, dtype=np.uint64).astype(np.uint32)
+    out = {}
+    for dev, engine in ((cuda, "vec"), ("cpu", "host")):
+        cache = _migration_caches(dev, n_real, 8)
+        state = {k: v.clone() for k, v in cache.init_state.items()}
+        before = pac_kernel.launches
+        state = cache.bulk_insert(state, h64, topics, vals, epochs=eps, engine=engine,
+                                  bucket=BucketSpec())
+        if engine == "vec":
+            torch.cuda.synchronize()
+            assert pac_kernel.launches == before + 1
+        out[engine] = state_to_numpy(state)
+    assert int(out["host"]["clock"]) == BucketSpec().padded_len(n_real)
+    for k in out["host"]:
+        assert np.array_equal(out["vec"][k], out["host"][k]), k
+
+
+def test_broker_rebalance_on_card_equals_host_engine(cuda):
+    rb = RebalanceSpec(every=4, decay=0.8, min_interval=2, hysteresis=0.1)
+
+    def make(device, engine):
+        b = _broker(device, True, "miss")
+        return Broker(b.cache, [_backend], b.topic_of, freshness=b.freshness_spec,
+                      bucket=BucketSpec(min_size=8), rebalance=rb, engine=engine,
+                      device=device)
+
+    gpu, host = make(cuda, "device"), make("cpu", "host")
+    rng = np.random.default_rng(9)
+    topic_of_q = np.random.default_rng(0).integers(-1, 6, size=4000)
+    launches = pac_kernel.launches
+    for i in range(24):
+        hot = np.flatnonzero(topic_of_q == (0 if i < 12 else 5))
+        q = np.where(rng.random(256) < 0.8, rng.choice(hot, 256), rng.integers(0, 4000, 256))
+        for b in (gpu, host):
+            b.advance_time(float(i))
+        v0, h0 = gpu.serve(q)
+        v1, h1 = host.serve(q)
+        assert np.array_equal(v0, v1) and np.array_equal(h0, h1), i
+        if i == 18:
+            assert gpu.rebalance(force=True) == host.rebalance(force=True)
+    assert gpu.stats.rebalances >= 2 and gpu.stats.rebalances == host.stats.rebalances
+    assert pac_kernel.launches >= launches + gpu.stats.rebalances  # the migrations
+    assert gpu.cache.cfg == host.cache.cfg
+    for k, v in dataclasses.asdict(gpu.stats).items():
+        assert np.array_equal(v, getattr(host.stats, k)), k
+    gpu.flush()
+    a, b = state_to_numpy(gpu.state), state_to_numpy(host.state)
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
+    gpu.close()
+    host.close()
 
 
 # -- topic_score -----------------------------------------------------------------
