@@ -57,6 +57,30 @@ Phases (any failure raises and exits non-zero):
    never restarted; a flipped byte in ``arrays.npz`` must raise and
    ``latest_verified_step`` skip it.  Save and restore seconds and the
    checkpoint's size are printed;
+   cluster: the sharded ``Cluster`` at the same size, every shard on
+   ``cuda:0``, each step held to an ``engine="host"`` cluster on the CPU
+   (the numpy host engine) in the same state.  ``Cluster.from_spec`` at
+   shards=1 with the warm state serves the 64 measured batches as a bare
+   ``Broker.from_spec`` does (values, hits, every counter, state); the
+   warmed shard migrates into 4 shards on hash routing (``reshard``: one
+   ``probe_and_commit`` launch per new shard, counted, each timed with CUDA
+   events beside its byte bound; ``reshard()``'s host-clock split into
+   extract, plan and commit), every shard's state bit-equal to the host
+   engine's, and the 64 batches are served again on both (odd batches with
+   a pool of 4 shard threads in place of the one-card default, serial
+   dispatch: ms/batch serial and threaded); the same on
+   topic routing, each topic's partition on shard tau mod 4; the batches
+   through ``serve_async`` with 8 in flight (fused shard calls); a profiled
+   window gives the idle share at 4 shards; ``run_open_loop`` with Poisson
+   arrivals at 0.7x the batch policy's capacity over the batches'
+   requests, shard 2 crashing halfway through the virtual time and
+   recovering from a checkpoint cut before the stream (under ``build/``,
+   removed): availability 1.0, the episode's health events and counters
+   equal to the host engine's; then the serving CLI in process, ``main``
+   on the card with ``CLI_REQUESTS`` requests: closed loop (topic routing,
+   4 shards, ``--pipeline 8``: the log, LDA through ``topic_score``,
+   gemma-2b's smoke-config back end) and open loop with shard 2 crashing
+   halfway, both returning 0;
 7. topics: the paper's topic pipeline on the card, as the serving CLI
    starts up.  ``generate`` draws the same log with its clicked documents
    (V = 4096 words); its keys must equal the served stream's.
@@ -144,9 +168,10 @@ Phases (any failure raises and exits non-zero):
    bound, the plain version and ``scaled_dot_product_attention``.
 
 The last three lines are one JSON object ``{"kernels": [...]}`` (each
-cache kernel's ``launches`` summed over the serve and broker phases, each
-counted from 0 just before its path; ``probe_and_commit``'s row also
-carries the migration launch's times), the
+cache kernel's ``launches`` summed over the serve, broker and cluster
+phases, ``topic_score``'s over the topics and cluster phases, each counted
+from 0 just before its path; ``probe_and_commit``'s row also carries the
+migration launch's times and the hash reshard's), the
 card's name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -164,6 +189,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -255,6 +281,10 @@ RECSYS_PROFILE = 3
 #: the card's steps against the CPU's at a small width: the CPU tests' f32
 #: tolerance (the GEMMs sum in other orders)
 RECSYS_RTOL, RECSYS_ATOL = 1e-5, 1e-6
+#: phase cluster's in-process CLI runs: the log's requests (half of them
+#: served) and the cache's entries
+CLI_REQUESTS = 2_000_000
+CLI_ENTRIES = 65536
 
 
 def decode_close(got, want):
@@ -421,20 +451,23 @@ def phase_warm(broker, train):
 
 class Capture:
     """Within the block, the positional inputs of one call of
-    ``module.attr`` (the ``index``-th, from 0), taken before the call, the
-    tensors cloned: the cache kernels update ``ks`` and ``value`` in place,
-    and a decode step the KV cache."""
+    ``module.attr`` (the ``index``-th, from 0; every call's, in ``each``,
+    for ``index=None``), taken before the call, the tensors cloned: the
+    cache kernels update ``ks`` and ``value`` in place, and a decode step
+    the KV cache."""
 
-    def __init__(self, module, attr: str, index: int):
+    def __init__(self, module, attr: str, index=None):
         self.ops, self.attr, self.index = module, attr, index
-        self.calls, self.args = 0, None
+        self.calls, self.args, self.each = 0, None, []
 
     def __enter__(self):
         orig = self.orig = getattr(self.ops, self.attr)
 
         def shim(*args, **kwargs):
-            if self.calls == self.index:
+            if self.index is None or self.calls == self.index:
                 self.args = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+                if self.index is None:
+                    self.each.append(self.args)
             self.calls += 1
             return orig(*args, **kwargs)
 
@@ -526,21 +559,40 @@ def phase_serve(device, cache, true_topic, first, warm, serve):
 
 def device_kernels(warm, run, what: str):
     """The device kernels the torch profiler recorded while ``run()`` ran,
-    after ``warm()`` ran in a first session (it starts the tracer); fails
-    when no device time was recorded."""
+    after ``warm()`` ran in a first session (it starts the tracer).
+
+    CUDA events bracket ``run()`` inside the same session.  The profiler
+    drops a window's records now and then (a short window's activity
+    buffer not yet complete when the session stops; the pause before the
+    stop makes that rarer): then the window's span on those events stands
+    in as one entry, an upper bound on the busy time, and a line says so.
+    Fails when neither saw device time."""
+    from types import SimpleNamespace
+
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):
         warm()
         torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with profile(activities=acts) as prof:
+        start.record()
         run()
+        end.record()
         torch.cuda.synchronize()
+        time.sleep(0.05)
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
-    check(bool(kern), f"the profiler recorded no device time for {what}")
-    return kern
+    if kern:
+        return kern
+    span_us = start.elapsed_time(end) * 1e3
+    check(span_us > 0, f"neither the profiler nor CUDA events saw device time for {what}")
+    print(f"profile: the profiler recorded no device time for {what}; its busy time below is "
+          f"the window's span on CUDA events ({span_us:.1f} us), an upper bound, with no "
+          f"per-kernel split")
+    return [SimpleNamespace(key="window span (CUDA events)", device_time_total=span_us,
+                            count=0)]
 
 
 def profile_window(broker, batches, batch_s: float):
@@ -669,6 +721,33 @@ def without_pads(common, n_real: int):
     return (plan[0], *plan[2:], *(t[:n_real].contiguous() for t in req), fields[6])
 
 
+@contextlib.contextmanager
+def migration_split(index=None):
+    """Within the block, the host-clock seconds of every
+    ``STDDeviceCache.extract_live`` and ``commit_vectorized`` call (each
+    synchronised) summed in ``secs``, and the inputs of the
+    ``probe_and_commit`` launches captured (``Capture``'s ``index``)."""
+    from repro_torch.kernels.cache_ops import ops
+    from repro_torch.serving import STDDeviceCache
+
+    secs = {"extract_live": 0.0, "commit": 0.0}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - t
+            return out
+        return run
+
+    with patched(STDDeviceCache, "extract_live", timed("extract_live", STDDeviceCache.extract_live)), \
+            patched(STDDeviceCache, "commit_vectorized",
+                    timed("commit", STDDeviceCache.commit_vectorized)), \
+            Capture(ops, "_probe_and_commit", index) as cap:
+        yield secs, cap
+
+
 def phase_broker(device, stats, ccfg, static, true_topic, train, warm, serve, served):
     """The whole single-card broker, built from a ``ServingSpec`` at the
     serve phase's size: a live rebalance of the warmed cache (one
@@ -676,10 +755,9 @@ def phase_broker(device, stats, ccfg, static, true_topic, train, warm, serve, se
     after it, key invalidation, the unfused path and a checkpoint."""
     from repro_torch.core.spec import CacheSpec
     from repro_torch.kernels.cache_ops import kernel as pac
-    from repro_torch.kernels.cache_ops import ops
     from repro_torch.kernels.cache_ops import serve_kernel as srv
     from repro_torch.serving import (Broker, BucketSpec, RebalanceSpec, ServingSpec,
-                                     STDDeviceCache, state_from_numpy)
+                                     state_from_numpy)
     from repro_torch.train import checkpoint as ckpt_lib
 
     batches = served["one_call"]["batches"]
@@ -716,23 +794,9 @@ def phase_broker(device, stats, ccfg, static, true_topic, train, warm, serve, se
     card.state = state_from_numpy(warm, device)
     host.state = state_from_numpy(warm, "cpu")
     live = int((warm["ks"][:, :WAYS] != 0).sum())
-    secs = {"extract_live": 0.0, "commit": 0.0}
-
-    def timed(name, fn):
-        def run(*args, **kwargs):
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            secs[name] += time.perf_counter() - t
-            return out
-        return run
-
     pac.launches = srv.launches = 0
     old_cfg = card.cache.cfg
-    with patched(STDDeviceCache, "extract_live", timed("extract_live", STDDeviceCache.extract_live)), \
-            patched(STDDeviceCache, "commit_vectorized",
-                    timed("commit", STDDeviceCache.commit_vectorized)), \
-            Capture(ops, "_probe_and_commit", 0) as cap:
+    with migration_split(0) as (secs, cap):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         moved = card.rebalance(force=True)
@@ -863,6 +927,315 @@ def phase_broker(device, stats, ccfg, static, true_topic, train, warm, serve, se
     print(f"broker/launches: {launches}")
     return dict(launches=launches, migration_ms=mig_ms, migration_bound_ms=mig_bound,
                 migration_nopad_ms=nopad_ms)
+
+
+# -- phase cluster: the sharded cluster, the open-loop harness and the CLI ------
+
+
+def cluster_states_equal(card, host, what: str) -> None:
+    """Every shard's flushed state words equal between two clusters."""
+    card.flush()
+    host.flush()
+    check(len(card.brokers) == len(host.brokers), f"{what}: shard counts differ")
+    for i, (a, b) in enumerate(zip(card.brokers, host.brokers)):
+        check(a.cache.cfg == b.cache.cfg, f"{what}: shard {i}'s layouts differ")
+        same_state(a.state, b.state, f"{what}, shard {i}")
+
+
+def cluster_stats_equal(card, host, what: str) -> None:
+    check(stats_equal(card.stats, host.stats), f"{what}: the aggregate BrokerStats differ")
+    for i, (a, b) in enumerate(zip(card.shard_stats, host.shard_stats)):
+        check(stats_equal(a, b), f"{what}: shard {i}'s BrokerStats differ")
+
+
+def serve_clusters(card, host, batches, threads=None):
+    """Serve ``batches`` on both clusters (hit masks and values equal, the
+    values the backend's); returns the card's host-clock seconds per batch,
+    split into serial and threaded dispatch when ``threads`` (a thread pool)
+    serves every other batch's shards in place of the card cluster's
+    serial default."""
+    secs = {"threaded": [], "serial": []}
+    for i, q in enumerate(batches):
+        threaded = threads is not None and i % 2 == 1
+        pool = card._pool
+        if threaded:
+            card._pool = threads
+        t0 = time.perf_counter()
+        v0, h0 = card.serve(q)
+        secs["threaded" if threaded else "serial"].append(time.perf_counter() - t0)
+        card._pool = pool
+        v1, h1 = host.serve(q)
+        check(np.array_equal(v0, backend(q)), "a cluster's value differs from the backend's")
+        check(np.array_equal(h0, h1) and np.array_equal(v0, v1),
+              "the card's cluster and the host engine's serve differently")
+    return secs
+
+
+def reshard_both(card, host, n: int, flush, what: str):
+    """Reshard both clusters to ``n`` shards: the card's through one
+    ``probe_and_commit`` launch per new shard (checked, each timed with CUDA
+    events beside its byte bound), the host engine's with numpy; every new
+    shard's state must be bit-equal.  Returns the card's reshard seconds
+    split, its migration launches and the per-launch (ms, bound ms)."""
+    from repro_torch.kernels.cache_ops import kernel as pac
+
+    live = sum(int((b.state["ks"][:, :WAYS] != 0).sum()) for b in card.brokers)
+    before = pac.launches
+    with migration_split() as (secs, cap):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.reshard(n)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    launches = pac.launches - before
+    check(launches == n == len(cap.each),
+          f"{what}: one probe_and_commit launch per new shard ({launches} for {n})")
+    t0 = time.perf_counter()
+    host.reshard(n)
+    host_s = time.perf_counter() - t0
+    cluster_states_equal(card, host, f"{what} (card kernels vs numpy host engine)")
+    migrated = [b.stats.migrated for b in card.brokers]
+    check(migrated == [b.stats.migrated for b in host.brokers] and sum(migrated) == live,
+          f"{what}: every live entry migrated ({sum(migrated)} of {live})")
+    times = []
+    for pks, *pcommon in cap.each:  # replays for timing: not the path's launches
+        ks_t = pks.clone()
+        ms = time_device(lambda: pac.probe_and_commit(ks_t, *pcommon), 5, flush,
+                         lambda: ks_t.copy_(pks))
+        times.append((ms, kernel_bytes(pks, pcommon) / HBM_BYTES_PER_S * 1e3, len(pcommon[0])))
+    pac.launches = before + launches
+    plan = total - secs["extract_live"] - secs["commit"]
+    launch_txt = "; ".join(f"B={b} {ms:.6f} ms (bound {bd:.6f})" for ms, bd, b in times)
+    print(f"cluster/{what}: {live} live entries into {n} shards (migrated {migrated}); "
+          f"reshard() {total:.6f} s on the host clock: extract {secs['extract_live']:.6f}, plan "
+          f"{plan:.6f}, commit {secs['commit']:.6f}; the host engine's {host_s:.3f} s; "
+          f"probe_and_commit launches (CUDA events, L2 flushed): {launch_txt}; every shard's "
+          f"state bit-equal to the numpy host engine's")
+    return dict(total=total, extract=secs["extract_live"], plan=plan, commit=secs["commit"],
+                launches=launches, times=times)
+
+
+def serve_async_both(card, host, batches, depth: int = 8):
+    """The batches through ``serve_async``, ``depth`` in flight, on both
+    clusters: values the backend's, hit masks equal.  Returns the card's
+    host-clock seconds."""
+    secs = 0.0
+    for g in range(0, len(batches), depth):
+        grp = batches[g : g + depth]
+        t0 = time.perf_counter()
+        outs = [f.result() for f in [card.serve_async(q) for q in grp]]
+        secs += time.perf_counter() - t0
+        mine = [f.result() for f in [host.serve_async(q) for q in grp]]
+        for q, (v0, h0), (v1, h1) in zip(grp, outs, mine):
+            check(np.array_equal(v0, backend(q)), "an async value differs from the backend's")
+            check(np.array_equal(h0, h1) and np.array_equal(v0, v1),
+                  "the card's and the host engine's async serves differ")
+    return secs
+
+
+def open_loop_episode(cluster, workload, policy, crash_s: float, ckpt: str):
+    """``run_open_loop`` with shard 2 crashing at virtual time ``crash_s``;
+    the checkpoint cut before the stream is where it recovers from.
+    Returns the result and the episode's health record."""
+    from repro_torch.loadgen import FaultInjectSpec, run_open_loop
+
+    cluster.save(ckpt, step=0)
+    cluster.inject_shard_faults(2, FaultInjectSpec(crash_at_s=crash_s))
+    t0 = time.perf_counter()
+    res = run_open_loop(workload, cluster, policy, collect=True)
+    wall = time.perf_counter() - t0
+    served = ~np.isnan(res.queue_s)
+    ok = np.all(res.values[served] == backend(workload.keys[served]), axis=1)
+    health = cluster.shard_health
+    record = (tuple(health[2].events), [dataclasses.astuple(h.counters) for h in health],
+              [h.state for h in health])
+    return res, float(ok.mean()), record, wall
+
+
+def phase_cluster(device, stats, true_topic, warm, serve, served):
+    """The sharded cluster at the serve phase's size (one card: every shard
+    on cuda:0), each step held to the numpy host engine's cluster on the CPU;
+    then the open-loop harness with a shard crash and the CLI itself."""
+    from repro_torch.core.spec import CacheSpec
+    from repro_torch.kernels.cache_ops import kernel as pac
+    from repro_torch.kernels.cache_ops import serve_kernel as srv
+    from repro_torch.kernels.topic_score import kernel as tsk
+    from repro_torch.launch.serve import main as serve_cli
+    from repro_torch.loadgen import ArrivalSpec, stamp_arrivals
+    from repro_torch.serving import (Broker, BucketSpec, Cluster, DispatchSpec, ResilienceSpec,
+                                     ServingSpec, state_from_numpy, state_to_numpy)
+
+    batches = served["one_call"]["batches"]
+    extra = [serve[i : i + B] for i in range(N_BATCHES * B, len(serve), B)]
+    srv.launches = pac.launches = tsk.launches = 0
+    spec = ServingSpec(
+        cache=CacheSpec.from_strategy("STDv_LRU", ENTRIES, f_s=0.5, f_t=0.4),
+        ways=WAYS, value_dim=VDIM, microbatch=B, bucket=BucketSpec(),
+        dispatch=DispatchSpec(max_fuse=8, fuse_requests=2 * B),
+        # behaviour-neutral until a fault is injected (no timeout)
+        resilience=ResilienceSpec(probe_interval_s=0.005),
+    )
+
+    def build(dev, **kw):
+        return Cluster.from_spec(dataclasses.replace(spec, **kw), stats, [backend],
+                                 value_fn=backend, device=dev)
+
+    # 1. shards=1 against a bare Broker.from_spec, both from the warm state
+    t0 = time.perf_counter()
+    one = build(device, shards=1)
+    build_s = time.perf_counter() - t0
+    bare = Broker.from_spec(spec, stats, [backend], value_fn=backend, device=device)
+    check(one.brokers[0].cache.cfg == bare.cache.cfg, "shards=1 compiles the bare broker's cache")
+    one.brokers[0].state = state_from_numpy(warm, device)
+    bare.state = state_from_numpy(warm, device)
+    secs1 = []
+    for q in batches:
+        t0 = time.perf_counter()
+        v1, h1 = one.serve(q)
+        secs1.append(time.perf_counter() - t0)
+        v0, h0 = bare.serve(q)
+        check(np.array_equal(v1, backend(q)) and np.array_equal(v0, v1) and np.array_equal(h0, h1),
+              "the shards=1 cluster serves differently from the bare broker")
+    check(stats_equal(one.stats, bare.stats), "shards=1: BrokerStats differ from the bare broker's")
+    one.flush()
+    bare.flush()
+    same_state(one.brokers[0].state, bare.state, "shards=1 against the bare broker")
+    bare.close()
+    snap = state_to_numpy(one.brokers[0].state)
+    snap_stats = dataclasses.replace(one.brokers[0].stats)
+    print(f"cluster/shards1: Cluster.from_spec in {build_s:.3f} s; {len(batches)} batches x {B} "
+          f"from the warm state equal to a bare Broker.from_spec (values, hits, every "
+          f"BrokerStats counter, state), {layer_line(one.stats)}; "
+          f"{np.median(secs1) * 1e3:.3f} ms/batch median on the host clock")
+
+    def twin(routing):
+        """A shards=1 host-engine cluster on the CPU in ``one``'s state."""
+        host = build("cpu", shards=1, engine="host", routing=routing)
+        host.brokers[0].state = state_from_numpy(snap, "cpu")
+        host.brokers[0].stats = dataclasses.replace(snap_stats)
+        return host
+
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=device)  # 256 MiB > L2
+    # 2. elastic reshard 1 -> 4 on hash routing, then the 64 batches again
+    host = twin("hash")
+    rs_hash = reshard_both(one, host, 4, flush, "reshard/hash")
+    card = one
+    check(card._pool is None, "shards on one card dispatch serially by default")
+    check(all(b.device == torch.device("cuda", 0) for b in card.brokers),
+          "every shard's cache on cuda:0 (one card)")
+    with ThreadPoolExecutor(max_workers=4) as threads:
+        secs4 = serve_clusters(card, host, batches, threads)
+    cluster_stats_equal(card, host, "hash shards=4")
+    cluster_states_equal(card, host, "hash shards=4 after serving")
+    print(f"cluster/hash4: {len(batches)} batches on 4 shards equal to the host engine's "
+          f"(values, hits, aggregate and per-shard stats, states), {layer_line(card.stats)}; "
+          f"ms/batch median on the host clock: serial (the default) "
+          f"{np.median(secs4['serial']) * 1e3:.3f}, threaded (every other batch, a pool of 4) "
+          f"{np.median(secs4['threaded']) * 1e3:.3f} (shards=1: {np.median(secs1) * 1e3:.3f})")
+
+    # 3. the same on topic routing: every topic's partition on shard tau mod 4
+    t_card = build(device, shards=1, routing="topic")
+    t_card.brokers[0].state = state_from_numpy(snap, device)
+    t_card.brokers[0].stats = dataclasses.replace(snap_stats)
+    t_host = twin("topic")
+    rs_topic = reshard_both(t_card, t_host, 4, flush, "reshard/topic")
+    owned = [set(b.cache.cfg.topic_entries) for b in t_card.brokers]
+    check(all(t % 4 == i for i, o in enumerate(owned) for t in o)
+          and sum(len(o) for o in owned) == len(set().union(*owned)),
+          "topic routing: each topic's partition on one shard, tau mod 4")
+    serve_clusters(t_card, t_host, batches)
+    cluster_stats_equal(t_card, t_host, "topic shards=4")
+    cluster_states_equal(t_card, t_host, "topic shards=4 after serving")
+    print(f"cluster/topic4: shards disjoint (topics per shard {[len(o) for o in owned]}); "
+          f"{len(batches)} batches equal to the host engine's, {layer_line(t_card.stats)}")
+    t_card.close()
+    t_host.close()
+
+    # 4. pipelined async dispatch, 8 batches in flight, fused shard calls
+    calls0 = sum(b.dispatch_counts.get("one_call", 0) for b in card.brokers)
+    async_s = serve_async_both(card, host, batches)
+    calls = sum(b.dispatch_counts.get("one_call", 0) for b in card.brokers) - calls0
+    cluster_stats_equal(card, host, "serve_async")
+    cluster_states_equal(card, host, "serve_async")
+    print(f"cluster/async: {len(batches)} batches through serve_async, 8 in flight, in {calls} "
+          f"fused shard calls (sync: {4 * len(batches)}); values the backend's, state and stats "
+          f"equal to the host engine's; {async_s / len(batches) * 1e3:.3f} ms/batch on the "
+          f"host clock")
+
+    # the device's idle share at shards 4 (serial), over the extra batches
+    kern = device_kernels(lambda: card.serve(extra[0]),
+                          lambda: [card.serve(q) for q in extra[1:]], "the 4-shard cluster")
+    busy = sum(e.device_time_total for e in kern) / (len(extra) - 1) / 1e6
+    med = float(np.median(secs4["serial"]))
+    print(f"cluster/profile: device busy {busy * 1e3:.4f} ms/batch over {len(extra) - 1} "
+          f"batches on 4 shards, idle share {1 - busy / med:.4f} of the serial median "
+          f"{med * 1e3:.3f} ms")
+    for q in extra:  # the host twin catches up on the profiled batches
+        host.serve(q)
+    cluster_states_equal(card, host, "after the profiled batches")
+
+    # 5. open loop, Poisson at 0.7x capacity, shard 2 crashing halfway
+    policy = spec.compiled_batch_policy()
+    rate = 0.7 * policy.capacity_rps()
+    workload = stamp_arrivals(np.concatenate(batches), ArrivalSpec(rate=rate, seed=SEED))
+    crash_s = workload.duration_s / 2
+    tmp = tempfile.mkdtemp(prefix="cluster_ckpt_", dir=ROOT / "build")
+    try:
+        res, avail, rec, wall = open_loop_episode(card, workload, policy, crash_s,
+                                                  os.path.join(tmp, "card"))
+        res_h, avail_h, rec_h, _ = open_loop_episode(host, workload, policy, crash_s,
+                                                     os.path.join(tmp, "host"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep, rep_h = res.report(), res_h.report()
+    check(avail == avail_h == 1.0, f"open-loop availability {avail} (host engine {avail_h})")
+    check(rec == rec_h, "the crash episode's health events and counters differ from the host "
+          "engine's under the same virtual clock")
+    check(np.array_equal(res.hit, res_h.hit) and np.array_equal(res.values, res_h.values),
+          "the open loop served differently on the card")
+    check((rep.served, rep.shed, rep.deferred) == (rep_h.served, rep_h.shed, rep_h.deferred),
+          "the open loop's accounting differs")
+    cluster_stats_equal(card, host, "after the open loop")
+    c2 = card.shard_health[2].counters
+    check(c2.recoveries == 1 and card.stats.degraded > 0,
+          "shard 2 crashed, served degraded and recovered once")
+    spans = card.shard_health[2].down_spans()
+    recovery_s = max((b - a for a, b in spans if b is not None), default=float("nan"))
+    s = card.stats
+    print(f"cluster/open-loop: Poisson at {rate:.0f} req/s (0.7 x capacity "
+          f"{policy.capacity_rps():.0f}), {len(workload)} requests over {workload.duration_s:.6f} "
+          f"virtual s, shard 2 crashing at {crash_s:.6f}: served {rep.served}, shed {rep.shed}, "
+          f"deferred {rep.deferred}, {len(res.plan.batches)} batches, hit rate {rep.hit_rate:.6f}; "
+          f"latency ms p50 {rep.p50_ms:.3f} p99 {rep.p99_ms:.3f} p99.9 {rep.p999_ms:.3f} "
+          f"(queueing p99 {rep.queue_p99_ms:.3f}); availability {avail:.4f}, degraded "
+          f"{s.degraded}, retried {s.retried}, failed_over {s.failed_over}, recoveries "
+          f"{c2.recoveries}, recovery_s {recovery_s:.6f}; the episode's events and counters equal "
+          f"to the host engine's; {wall:.3f} s wall")
+    card.close()
+    host.close()
+    del flush
+
+    # 6. the CLI in process on the card: closed loop, then open loop with a crash
+    # the CLI's test stream is the second half of its log; its open loop
+    # offers 0.7 x the capacity of the same batch policy (max_batch = B)
+    n_test = CLI_REQUESTS - int(CLI_REQUESTS * 0.5)
+    t_crash = 0.5 * n_test / rate
+    argv = ["--requests", str(CLI_REQUESTS), "--entries", str(CLI_ENTRIES), "--batch", str(B),
+            "--shards", "4"]
+    runs = (("closed", argv + ["--routing", "topic", "--pipeline", "8"]),
+            ("open", argv + ["--open-loop", "--fault-shard", f"2@{t_crash:.6f}",
+                             "--min-availability", "1.0"]))
+    for name, args in runs:
+        t0 = time.perf_counter()
+        rc = serve_cli(args)
+        print(f"cluster/cli-{name}: main({' '.join(args)}) returned {rc} in "
+              f"{time.perf_counter() - t0:.3f} s")
+        check(rc == 0, f"the CLI's {name}-loop run returned {rc}")
+    launches = {"serve_fused": srv.launches, "probe_and_commit": pac.launches,
+                "topic_score": tsk.launches}
+    check(all(launches.values()), f"phase cluster launched every kernel of its path: {launches}")
+    print(f"cluster/launches: {launches}")
+    return dict(launches=launches, reshard_hash=rs_hash, reshard_topic=rs_topic)
 
 
 # -- phase 7: the topic pipeline --------------------------------------------------
@@ -2026,6 +2399,7 @@ def main() -> int:
     phase("cpu", phase_cpu, ccfg, static, true_topic, warm, served)
     brk = phase("broker", phase_broker, device, vstats, ccfg, static, true_topic, train, warm,
                 serve, served)
+    cl = phase("cluster", phase_cluster, device, vstats, true_topic, warm, serve, served)
     del vstats
     topics = phase("topics", phase_topics, device, cfg, keys, true_topic, n_train, served,
                    static)
@@ -2056,17 +2430,21 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source="src/repro_torch/csrc/cache_ops.cu",
             replaces=replaces,
-            launches=served[path]["launches"][name] + brk["launches"][name],
+            launches=(served[path]["launches"][name] + brk["launches"][name]
+                      + cl["launches"][name]),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes", library_ms=None,
         ))
     kernels[-1].update(migration_ms=brk["migration_ms"],
                        migration_bound_ms=brk["migration_bound_ms"],
-                       migration_nopad_ms=brk["migration_nopad_ms"])
+                       migration_nopad_ms=brk["migration_nopad_ms"],
+                       reshard_ms=[t[0] for t in cl["reshard_hash"]["times"]],
+                       reshard_bound_ms=[t[1] for t in cl["reshard_hash"]["times"]])
     r = rows["topic_score"]
     kernels.append(dict(
         name="topic_score", route="cuda", source="src/repro_torch/csrc/topic_score.cu",
-        replaces="src/repro/kernels/topic_score/kernel.py:51", launches=topics["launches"],
+        replaces="src/repro/kernels/topic_score/kernel.py:51",
+        launches=topics["launches"] + cl["launches"]["topic_score"],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
     ))

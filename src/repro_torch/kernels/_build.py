@@ -12,18 +12,20 @@ reused.  ``build_all`` returns ``ptxas``'s report (registers, shared memory
 and spills per kernel) for each library it compiled.
 
 There is no fallback: no ``nvcc`` or a failed build raises.  Nothing here
-runs at import time.
+runs at import time.  The first build and each library's load run once
+under a module lock, so shard threads that reach a kernel together (a
+threaded ``Cluster``) start one ``nvcc`` per source and one ``CDLL`` load.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -31,6 +33,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: guards the first build and the library loads (shard threads race there)
+_LOCK = threading.Lock()
+#: ``build_all``'s result once it has run
+_LIBS: Optional[Dict[str, Tuple[Path, str]]] = None
+#: the loaded libraries by source stem
+_LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -52,15 +61,24 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{digest[:12]}.so"
 
 
-@functools.lru_cache(maxsize=None)
 def build_all() -> Dict[str, Tuple[Path, str]]:
     """Compile every ``csrc/*.cu`` whose library is missing, one ``nvcc``
-    per source, all started together.
+    per source, all started together; once per process, whichever thread
+    calls first.
 
     Returns ``{source stem: (library path, ptxas report)}``; the report is
     empty for a library that was already built.  Raises ``RuntimeError``
-    with the compiler's output when a build fails.
+    with the compiler's output when a build fails (a later call tries
+    again).
     """
+    global _LIBS
+    with _LOCK:
+        if _LIBS is None:
+            _LIBS = _compile_all()
+        return _LIBS
+
+
+def _compile_all() -> Dict[str, Tuple[Path, str]]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs, jobs = {}, {}
     for src in sorted(CSRC.glob("*.cu")):
@@ -86,13 +104,16 @@ def build_all() -> Dict[str, Tuple[Path, str]]:
     return libs
 
 
-@functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` (built on first use)."""
+    """The loaded library built from ``csrc/<name>.cu`` (built on first use,
+    loaded once)."""
     libs = build_all()
     if name not in libs:
         raise RuntimeError(f"no kernel source csrc/{name}.cu")
-    return ctypes.CDLL(str(libs[name][0]))
+    with _LOCK:
+        if name not in _LOADED:
+            _LOADED[name] = ctypes.CDLL(str(libs[name][0]))
+        return _LOADED[name]
 
 
 def check(err: int, what: str) -> None:

@@ -18,7 +18,11 @@ identical to the reference's.  What the log carries:
   (:mod:`repro_torch.topics`) can discover the topics the cache uses.
 
 :func:`generate_stream` stops after the request stream.  :func:`generate`
-goes on to the features and the documents.  The documents are held in CSR
+goes on to the features and the documents.  :func:`generate_drifting` (a
+piecewise-stationary stream whose topic popularity drifts, without
+documents) and :func:`generate_invalidations` (seeded invalidation events on
+a log's time axis) are copies of the reference's too, equal array for array
+on one seed.  The documents are held in CSR
 form (``doc_qid`` ascending, ``doc_offsets``, ``doc_tokens``) rather than
 the reference's dict of one array per query: the same data, laid out for
 a log of millions of documents.
@@ -26,12 +30,10 @@ a log of millions of documents.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-
-from ..core.device import resolve_device
 
 #: sentinel topic id of an unclassified query
 NO_TOPIC = -1
@@ -101,10 +103,11 @@ class SynthLog:
     doc_qid: np.ndarray  # (n_docs,) int64 clicked query ids, ascending
     doc_offsets: np.ndarray  # (n_docs + 1,) int64
     doc_tokens: np.ndarray  # (total tokens,) int32 word ids
-    #: click count per query id (voting weight)
-    clicks: np.ndarray  # (n_queries,) int64
-    #: the generator's topic-word distributions (diagnostics only)
-    phi: np.ndarray  # (n_topics, vocab_size) float64
+    #: click count per query id (voting weight); None for a drift stream
+    clicks: Optional[np.ndarray]  # (n_queries,) int64
+    #: the generator's topic-word distributions (diagnostics only); None
+    #: for a drift stream
+    phi: Optional[np.ndarray]  # (n_topics, vocab_size) float64
     config: Optional[SynthConfig] = None
 
     @property
@@ -283,6 +286,8 @@ def generate(cfg: SynthConfig, device="cuda") -> SynthLog:
     the reference's bit for bit, without numpy's one-word-at-a-time binary
     search, the slowest step of the reference's generator at that size.
     """
+    from ..core.device import resolve_device  # deferred: repro_torch.core imports this module
+
     dev = resolve_device(device)
     rng = np.random.default_rng(cfg.seed)
     keys, true_topic = _draw_stream(rng, cfg)
@@ -346,3 +351,246 @@ def generate(cfg: SynthConfig, device="cuda") -> SynthLog:
         phi=phi,
         config=cfg,
     )
+
+
+# ---------------------------------------------------------------------------
+# Time-varying popularity streams (popularity drift; Gao et al.)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class DriftConfig:
+    """Piecewise-stationary topic popularity with drifting query mixtures.
+
+    The stream is split into ``n_phases`` equal segments.  Within a phase
+    everything is stationary; at each phase boundary the *topic*
+    popularity ranking is re-drawn (a seeded permutation of the same Zipf
+    shares -- yesterday's cold topic becomes today's hot one) and, with
+    ``rotate_queries``, the *within-topic* Zipf head rotates through the
+    topic's query pool (a drifting mixture of Zipf sources in the style
+    of Gao et al.'s time-varying popularity model).  A cache allocation
+    frozen on the first phase's statistics is therefore honestly stale
+    for every later phase -- the scenario the drift rebalancer exists
+    for, and the one ``benchmarks/fig_drift.py`` measures.
+
+    Queries are dense ids: topic ``t`` owns ``[t*m, (t+1)*m)`` with
+    ``m = queries_per_topic``; the stationary no-topic pool follows.
+    """
+
+    n_requests: int = 400_000
+    n_topics: int = 24
+    queries_per_topic: int = 1_500
+    n_notopic_queries: int = 5_000
+    topical_fraction: float = 0.85
+    #: Zipf exponent over topic popularity ranks (per phase)
+    zipf_topic: float = 1.1
+    #: Zipf exponent over query ranks inside a topic (flat-ish: capacity,
+    #: not a tiny hot head, is what buys hits)
+    zipf_query: float = 0.7
+    #: popularity phases; 1 = stationary (no drift)
+    n_phases: int = 4
+    #: rotate each topic's Zipf head at every phase boundary
+    rotate_queries: bool = True
+    #: of the no-topic requests, fraction that are fresh singletons --
+    #: churn that pollutes a global LRU but never reaches the topic
+    #: partitions (the isolation the paper's topic layer buys)
+    singleton_fraction: float = 0.0
+    seed: int = 0
+
+
+def generate_drifting(cfg: DriftConfig) -> SynthLog:
+    """Generate a piecewise-stationary drift stream (see ``DriftConfig``)."""
+    rng = np.random.default_rng(cfg.seed)
+    k, n, m = cfg.n_topics, cfg.n_requests, cfg.queries_per_topic
+    phases = max(1, int(cfg.n_phases))
+    base = _zipf_pmf(k, cfg.zipf_topic)
+    # phase 0 keeps the identity ranking; later phases permute it
+    perms = [np.arange(k)] + [rng.permutation(k) for _ in range(phases - 1)]
+    phase_of = np.minimum((np.arange(n) * phases) // n, phases - 1)
+
+    is_topical = rng.random(n) < cfg.topical_fraction
+    keys = np.empty(n, dtype=np.int64)
+    top_pos = np.flatnonzero(is_topical)
+    q_cdf = np.cumsum(_zipf_pmf(m, cfg.zipf_query))
+    for p in range(phases):
+        sel = top_pos[phase_of[top_pos] == p]
+        if not len(sel):
+            continue
+        share = np.empty(k)
+        share[perms[p]] = base  # perms[p][j] is phase p's rank-j topic
+        topic = rng.choice(k, size=len(sel), p=share)
+        rank = np.searchsorted(q_cdf, rng.random(len(sel)), side="right")
+        rank = np.minimum(rank, m - 1)
+        if cfg.rotate_queries:
+            # shift which queries form the Zipf head: same pool, new hot set
+            rank = (rank + (p * m) // phases) % m
+        keys[sel] = topic * m + rank
+
+    nt_pos = np.flatnonzero(~is_topical)
+    n_topical = k * m
+    is_single = rng.random(len(nt_pos)) < cfg.singleton_fraction
+    pool_pos = nt_pos[~is_single]
+    if len(pool_pos):
+        keys[pool_pos] = n_topical + _sample_zipf(
+            rng, len(pool_pos), cfg.n_notopic_queries, 1.0
+        )
+    sing_pos = nt_pos[is_single]
+    keys[sing_pos] = n_topical + cfg.n_notopic_queries + np.arange(len(sing_pos))
+    n_queries = n_topical + cfg.n_notopic_queries + len(sing_pos)
+
+    true_topic = np.full(n_queries, NO_TOPIC, dtype=np.int64)
+    true_topic[:n_topical] = np.repeat(np.arange(k, dtype=np.int64), m)
+
+    # surface features: enough for the admission policies to be applicable
+    freq = np.bincount(keys, minlength=n_queries)
+    n_terms = 1 + rng.poisson(0.5 + 0.6 * np.log1p(1.0 / np.maximum(freq, 1)))
+    n_chars = (n_terms * 5 + 2).astype(np.int64)
+
+    return SynthLog(
+        keys=keys,
+        timestamps=np.linspace(0, float(phases), n),  # one "day" per phase
+        true_topic=true_topic,
+        n_terms=n_terms.astype(np.int64),
+        n_chars=n_chars,
+        doc_qid=np.zeros(0, np.int64),
+        doc_offsets=np.zeros(1, np.int64),
+        doc_tokens=np.zeros(0, np.int32),
+        clicks=None,
+        phi=None,
+        config=None,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Invalidation-event streams (freshness; docs/freshness.md)
+# ---------------------------------------------------------------------------
+
+#: event kinds in an :class:`InvalidationStream`
+INVAL_KEY = 0
+INVAL_TOPIC = 1
+
+
+@dataclass
+class InvalidationConfig:
+    """Seeded invalidation processes riding a query stream's virtual time.
+
+    Real backends re-crawl and re-rank: a result set becomes wrong, not
+    just cold.  This models the two granularities the serving tier
+    supports (see ``Broker.invalidate``): whole-topic flushes (an index
+    segment for one topic was rebuilt) as independent per-topic Poisson
+    processes, and single-key events (one query's results changed) as a
+    popularity-weighted Poisson process over the stream's requested
+    keys -- popular content is re-crawled more often.
+
+    Rates are events per unit of the log's own time axis (days for
+    :func:`generate`, phases for :func:`generate_drifting`), so one
+    config composes with either stream family unchanged.
+    """
+
+    #: mean topic-flush events per topic per time unit
+    topic_rate: float = 0.0
+    #: mean key events per time unit (whole stream)
+    key_rate: float = 0.0
+    #: restrict topic events to these topics (None = every topic)
+    topics: Optional[Tuple[int, ...]] = None
+    #: weight key choice by request frequency (False = uniform over the
+    #: distinct requested keys)
+    popularity_weighted: bool = True
+    seed: int = 0
+
+
+@dataclass
+class InvalidationStream:
+    """Time-ordered invalidation events with a replay cursor.
+
+    ``kinds[i]`` is :data:`INVAL_KEY` or :data:`INVAL_TOPIC`;
+    ``targets[i]`` is the key id or topic id.  ``take_until`` is the
+    replay interface: the harness (or any driver) calls it with each
+    batch's dispatch time and applies the returned events before
+    serving, so an episode replays bit-identically on any deployment.
+    """
+
+    times: np.ndarray  # (m,) float64, ascending
+    kinds: np.ndarray  # (m,) int8
+    targets: np.ndarray  # (m,) int64
+    _cursor: int = 0
+
+    def __len__(self) -> int:
+        return len(self.times)
+
+    def reset(self) -> None:
+        self._cursor = 0
+
+    def take_until(self, t: float) -> List[Tuple[int, int]]:
+        """Consume and return every not-yet-replayed event with
+        ``time <= t`` as ``(kind, target)`` pairs, in time order."""
+        lo = self._cursor
+        hi = int(np.searchsorted(self.times, float(t), side="right"))
+        self._cursor = max(lo, hi)
+        return [
+            (int(self.kinds[i]), int(self.targets[i])) for i in range(lo, self._cursor)
+        ]
+
+    def apply(self, server, t: float) -> int:
+        """Replay due events against a Broker/Cluster (anything with
+        ``invalidate``); returns the number of events applied."""
+        events = self.take_until(t)
+        for kind, target in events:
+            if kind == INVAL_TOPIC:
+                server.invalidate(topic=target)
+            else:
+                server.invalidate(keys=np.asarray([target], np.int64))
+        return len(events)
+
+
+def generate_invalidations(
+    cfg: InvalidationConfig, log: SynthLog
+) -> InvalidationStream:
+    """Draw an invalidation stream against ``log``'s time axis (seeded,
+    independent of the query draw -- the same log composes with many
+    invalidation scenarios)."""
+    rng = np.random.default_rng(cfg.seed)
+    t_end = float(log.timestamps[-1]) if len(log.timestamps) else 1.0
+    t_end = max(t_end, 1e-9)
+    times, kinds, targets = [], [], []
+
+    topical = np.flatnonzero(log.true_topic != NO_TOPIC)
+    all_topics = np.unique(log.true_topic[topical]) if len(topical) else np.array([], np.int64)
+    topic_pool = (
+        np.asarray(sorted(cfg.topics), np.int64)
+        if cfg.topics is not None
+        else all_topics
+    )
+    if cfg.topic_rate > 0:
+        for t in topic_pool:
+            m = int(rng.poisson(cfg.topic_rate * t_end))
+            if m:
+                times.append(rng.random(m) * t_end)
+                kinds.append(np.full(m, INVAL_TOPIC, np.int8))
+                targets.append(np.full(m, int(t), np.int64))
+
+    if cfg.key_rate > 0:
+        freq = np.bincount(log.keys, minlength=log.n_queries)
+        requested = np.flatnonzero(freq > 0)
+        if len(requested):
+            m = int(rng.poisson(cfg.key_rate * t_end))
+            if m:
+                if cfg.popularity_weighted:
+                    p = freq[requested].astype(np.float64)
+                    p /= p.sum()
+                    ks = rng.choice(requested, size=m, p=p)
+                else:
+                    ks = rng.choice(requested, size=m)
+                times.append(rng.random(m) * t_end)
+                kinds.append(np.full(m, INVAL_KEY, np.int8))
+                targets.append(np.asarray(ks, np.int64))
+
+    if not times:
+        z = np.zeros(0)
+        return InvalidationStream(z, z.astype(np.int8), z.astype(np.int64))
+    times = np.concatenate(times)
+    kinds = np.concatenate(kinds)
+    targets = np.concatenate(targets)
+    # deterministic total order: time, then kind, then target
+    order = np.lexsort((targets, kinds, times))
+    return InvalidationStream(times[order], kinds[order], targets[order])

@@ -1,8 +1,10 @@
 """Serving runtime of the port: the device-resident STD cache, the broker
 (fused and unfused paths, the host engine, live rebalancing, key
-invalidation, checkpoints) and the serving specs.  The sharded cluster is
-not ported yet (ROADMAP.md, Queue 1 item 7)."""
+invalidation, checkpoints), the sharded cluster (hash and topic routing,
+pipelined async dispatch, resilience and recovery, elastic resharding) and
+the serving specs."""
 from .broker import Backend, Broker, BrokerStats, HedgePolicy
+from .cluster import Cluster, ClusterFuture
 from .device_cache import (
     DYNAMIC,
     PAD_H64,
@@ -18,7 +20,15 @@ from .device_cache import (
     unpack_state,
 )
 from .rebalance import PopularityTracker, RebalanceSpec
-from .resilience import ResilienceCounters, ResilienceSpec, ShardHealth
+from .resilience import (
+    DOWN,
+    HEALTHY,
+    RECOVERING,
+    SUSPECT,
+    ResilienceCounters,
+    ResilienceSpec,
+    ShardHealth,
+)
 from .spec import BatchPolicySpec, BucketSpec, DispatchSpec, HedgeSpec, ServingSpec
 from ..core.spec import PAD_KEY
 from ..freshness import FreshnessSpec
@@ -29,10 +39,14 @@ __all__ = [
     "Broker",
     "BrokerStats",
     "BucketSpec",
+    "Cluster",
+    "ClusterFuture",
+    "DOWN",
     "DYNAMIC",
     "DeviceCacheConfig",
     "DispatchSpec",
     "FreshnessSpec",
+    "HEALTHY",
     "HedgePolicy",
     "HedgeSpec",
     "PAD_H64",
@@ -40,10 +54,12 @@ __all__ = [
     "PAD_KEY",
     "PAD_LO",
     "PopularityTracker",
+    "RECOVERING",
     "RebalanceSpec",
     "ResilienceCounters",
     "ResilienceSpec",
     "STDDeviceCache",
+    "SUSPECT",
     "ServingSpec",
     "ShardHealth",
     "pack_hashes",

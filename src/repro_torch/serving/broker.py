@@ -35,8 +35,8 @@ other's checkpoints.
 
 There is no jit: ``trace_counts`` stays empty.  ``warmup`` builds the
 kernels and makes one warm launch of every serving entry per bucket shape.
-The sharded cluster is not ported yet (ROADMAP.md, Queue 1 item 7): its
-resilience counters stay 0 here.
+The resilience counters stay 0 on a broker: the sharded cluster
+(:class:`repro_torch.serving.cluster.Cluster`) counts them cluster-side.
 """
 from __future__ import annotations
 
@@ -89,7 +89,7 @@ class BrokerStats:
     #: resident entries carried into new layouts, summed over rebalances
     migrated: int = 0
     #: cluster resilience counters (kept for the checkpoint format; the
-    #: sharded cluster that counts them is not ported yet: 0)
+    #: cluster counts them on its side, so a broker's stay 0)
     degraded: int = 0
     retried: int = 0
     failed_over: int = 0
@@ -280,7 +280,8 @@ class Broker:
         callable remains as an escape hatch), and every serving knob --
         engine, fused, microbatch, coalescing, hedging, rebalancing,
         bucketing, freshness -- comes from the spec.  ``spec.shards`` is
-        ignored here (the sharded cluster is not ported yet), and
+        ignored here (``Cluster.from_spec`` builds one broker per shard,
+        each through this method with its slice's ``cache``), and
         ``spec.use_kernel`` changes nothing: the kernels always run on the
         card.
         """

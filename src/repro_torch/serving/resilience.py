@@ -27,8 +27,8 @@ bookkeeping, not correctness:
   so outage windows and recovery times are measurable
   (:meth:`ShardHealth.down_spans`).
 
-The dispatch loop that drives them belongs to the sharded cluster, which
-is not ported yet (ROADMAP.md, Queue 1 item 7).
+The dispatch loop that drives them is the sharded cluster's
+(:class:`repro_torch.serving.cluster.Cluster`).
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Declarative serving configuration: one ``ServingSpec``, one broker.
+"""Declarative serving configuration: one ``ServingSpec``, one broker or
+one sharded cluster.
 
 A copy of ``repro.serving.spec``.  :class:`repro_torch.core.spec.CacheSpec`
 makes the *cache* declarative; this module does the same for the serving
@@ -12,10 +13,11 @@ hash).
 
 The spec compiles to one broker with
 :meth:`repro_torch.serving.broker.Broker.from_spec` (``shards`` is ignored
-there); the sharded cluster is not ported yet (ROADMAP.md, Queue 1 item
-7), but the shard helpers (:meth:`ServingSpec.shard_of`,
-:meth:`ServingSpec.device_configs`, ...) are, so the JSON and the shard
-layouts of both packages agree.
+there) or to a sharded cluster with
+:meth:`repro_torch.serving.cluster.Cluster.from_spec`, whose shard layouts
+come from the shard helpers (:meth:`ServingSpec.shard_of`,
+:meth:`ServingSpec.device_configs`, ...), so the JSON and the shard layouts
+of both packages agree.
 
 ``use_kernel`` is kept so that JSON written by either package loads in the
 other to an equal spec.  It changes nothing in the port: on the card the
@@ -122,8 +124,8 @@ class BatchPolicySpec:
     """Deadline-driven batch coalescing -- the compiled form of the
     ``ServingSpec.microbatch`` / ``coalesce`` knobs.
 
-    An open-loop load harness (not ported yet: ROADMAP.md, Queue 1 item
-    8) forms batches from an arrival stream under this policy; the broker's bare knobs
+    The open-loop load harness (:mod:`repro_torch.loadgen.harness`) forms
+    batches from an arrival stream under this policy; the broker's bare knobs
     compile to its defaults via
     :meth:`ServingSpec.compiled_batch_policy`, so the batching a
     deployment serves under is one declarative object, not scattered

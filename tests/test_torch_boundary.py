@@ -31,6 +31,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.core.spec, repro_torch.core.alloc, repro_torch.train\n"
         "import repro_torch.train.checkpoint, repro_torch.serving.spec\n"
         "import repro_torch.serving.rebalance, repro_torch.serving.resilience\n"
+        "import repro_torch.serving.cluster, repro_torch.loadgen, repro_torch.loadgen.arrivals\n"
+        "import repro_torch.loadgen.harness, repro_torch.loadgen.inject, repro_torch.loadgen.slo\n"
+        "import repro_torch.launch, repro_torch.launch.mesh\n"
+        "from repro_torch.launch.serve import main\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

@@ -974,3 +974,68 @@ def test_two_tower_steps_on_the_card_go_through_the_kernel(cuda):
         cpu = build_recsys_step(arch, arch.shape(shape), params,
                                 torch.Generator().manual_seed(1), "cpu", smoke=True)
         torch.testing.assert_close(got.cpu(), cpu.fn(cpu.batch), rtol=1e-5, atol=1e-6)
+
+
+def test_four_shard_cluster_on_the_card_equals_the_host_engine_cluster(cuda):
+    """A 4-shard cluster on the card (every shard on cuda:0, shard threads
+    asked for) against the numpy host-engine cluster on one seeded stream:
+    values, hit masks, stats and every shard's state, through synchronous
+    and pipelined serving and a reshard 4 -> 2 (one probe_and_commit launch
+    per new shard)."""
+    from repro_torch.core.fast import VecLog, VecStats
+    from repro_torch.core.spec import CacheSpec
+    from repro_torch.serving import Cluster, DispatchSpec, ServingSpec
+
+    rng = np.random.default_rng(3)
+    keys = (rng.zipf(1.3, size=40_000) % 5000).astype(np.int64)
+    topic = rng.integers(-1, 12, size=5000).astype(np.int64)
+    log = VecLog(keys=keys, n_train=20_000, key_topic=topic)
+    stats = VecStats.from_log(log)
+
+    def backend(q):
+        return np.tile(np.asarray(q)[:, None], (1, 4)).astype(np.int32)
+
+    def make(engine, dev, **kw):
+        spec = ServingSpec(cache=CacheSpec.from_strategy("STDv_LRU", 4096, f_s=0.3, f_t=0.5),
+                           value_dim=4, microbatch=512, shards=4, routing="topic",
+                           engine=engine, bucket=BucketSpec(), dispatch=DispatchSpec(max_fuse=4))
+        return Cluster.from_spec(spec, stats, [backend], value_fn=backend, device=dev, **kw)
+
+    # shard threads on one card (not the default there): the risky path
+    card, host = make("device", "cuda", parallel=True), make("host", "cpu")
+    assert all(b.device == torch.device("cuda", 0) for b in card.brokers)
+    assert card._pool is not None
+    test = log.test_keys
+    batches = [test[lo : lo + 512] for lo in range(0, len(test), 512)]
+
+    def same_state():
+        card.flush()
+        host.flush()
+        for a, b in zip(card.brokers, host.brokers):
+            x, y = state_to_numpy(a.state), state_to_numpy(b.state)
+            assert all(np.array_equal(x[k], y[k]) for k in x)
+
+    srv0 = serve_kernel.launches
+    for q in batches[:20]:
+        v0, h0 = card.serve(q)
+        v1, h1 = host.serve(q)
+        assert np.array_equal(v0, v1) and np.array_equal(h0, h1)
+        assert np.array_equal(v0, backend(q))
+    assert serve_kernel.launches > srv0
+    same_state()
+    pac0 = pac_kernel.launches
+    card.reshard(2)
+    host.reshard(2)
+    assert pac_kernel.launches - pac0 == 2
+    same_state()
+    rest = np.concatenate(batches[20:])
+    outs = []
+    for c in (card, host):
+        futs = [c.serve_async(rest[lo : lo + 512]) for lo in range(0, len(rest), 512)]
+        outs.append([f.result() for f in futs])
+    for (v0, h0), (v1, h1) in zip(*outs):
+        assert np.array_equal(v0, v1) and np.array_equal(h0, h1)
+    assert dataclasses.asdict(card.stats) == dataclasses.asdict(host.stats)
+    same_state()
+    card.close()
+    host.close()
