@@ -81,6 +81,25 @@ Phases (any failure raises and exits non-zero):
    4 shards, ``--pipeline 8``: the log, LDA through ``topic_score``,
    gemma-2b's smoke-config back end) and open loop with shard 2 crashing
    halfway, both returning 0;
+   analysis: the paper's hit-rate engine (``repro_torch.core``).  On the
+   default ``SynthConfig`` stream (2M requests, its first 70% training,
+   keys unseen in training without a topic) each of the six strategies at
+   ``PAPER_N`` entries: the card's reuse-distance hits (``analyze`` on
+   ``cuda``) must equal the host's exact simulation (``simulate`` of
+   ``CacheSpec.to_exact``) and the reference's count; Bélády's bound must
+   equal the reference's, and the gap reductions are printed.  The card's
+   reuse distances on the x100 stream's first ``RD_CPU_POSITIONS`` must
+   equal the CPU's (another sort) and, on the first
+   ``RD_ORACLE_POSITIONS``, the Fenwick oracle's.  Then every strategy of
+   ``X100_STRATEGIES`` on the whole x100 stream at ``ENTRIES`` (topics
+   masked likewise): each distance below its position within its
+   partition, the per-partition histograms monotone and ending at the
+   counted repeats, the hits at the layout's capacities equal to the
+   histograms read there; prints the hit rate split into static, topic
+   and dynamic hits, the seconds per ``analyze`` (host clock,
+   synchronised) and its peak device memory, STDv_LRU's exact-LRU hit
+   rate on the served requests beside the serve phase's set-associative
+   one, and one LRU of every size to ``ENTRIES`` from one pass;
 7. topics: the paper's topic pipeline on the card, as the serving CLI
    starts up.  ``generate`` draws the same log with its clicked documents
    (V = 4096 words); its keys must equal the served stream's.
@@ -285,6 +304,28 @@ RECSYS_RTOL, RECSYS_ATOL = 1e-5, 1e-6
 #: served) and the cache's entries
 CLI_REQUESTS = 2_000_000
 CLI_ENTRIES = 65536
+#: phase analysis: the paper's comparison on the default SynthConfig stream
+#: (2M requests, its own seed, the first 70% training, keys unseen in
+#: training without a topic) at N entries.  Per strategy: (f_s, f_t, f_ts)
+#: and the hit count that repro.core's hit_rate and simulate both give on
+#: it, and Bélády's at N (belady_hits, count_from = the training prefix)
+PAPER_N = 32768
+PAPER_STRATEGIES = {
+    "SDC": ((0.5, 0.0, None), 445515),
+    "STDf_LRU": ((0.5, 0.4, None), 450133),
+    "STDv_LRU": ((0.5, 0.4, None), 452194),
+    "STDv_SDC_C1": ((0.5, 0.4, 0.5), 426237),
+    "STDv_SDC_C2": ((0.5, 0.4, 0.5), 454690),
+    "Tv_SDC": ((0.5, 0.4, 0.5), 361180),
+}
+PAPER_BELADY = 480651
+#: the card's reuse distances against the CPU's (a different sort) and
+#: against the Fenwick oracle, on prefixes of the x100 stream
+RD_CPU_POSITIONS = 1 << 22
+HIST_CAP = 1 << 12  # the capacities whose histograms the card and the CPU compare
+RD_ORACLE_POSITIONS = 1 << 17
+#: the strategies analysed on the whole x100 stream at ENTRIES
+X100_STRATEGIES = tuple(PAPER_STRATEGIES)
 
 
 def decode_close(got, want):
@@ -1236,6 +1277,249 @@ def phase_cluster(device, stats, true_topic, warm, serve, served):
     check(all(launches.values()), f"phase cluster launched every kernel of its path: {launches}")
     print(f"cluster/launches: {launches}")
     return dict(launches=launches, reshard_hash=rs_hash, reshard_topic=rs_topic)
+
+
+# -- phase analysis: the paper's hit-rate engine -----------------------------------
+
+
+def mask_unseen(key_topic, keys, n_train):
+    """The topics with every key unseen in training set to ``NO_TOPIC``:
+    the exact and the vectorized engines agree only then (the exact one
+    knows topics only of training keys)."""
+    from repro_torch.core import NO_TOPIC
+
+    topic = np.array(key_topic, copy=True)
+    topic[np.bincount(keys[:n_train], minlength=len(topic)) == 0] = NO_TOPIC
+    return topic
+
+
+def masked_stats(vstats, topic):
+    """``VecStats.from_log`` of the log with ``mask_unseen``'s topics, from
+    the unmasked stats: only unseen keys changed, so every rank stays and
+    the topics that no training key carries drop out."""
+    return dataclasses.replace(vstats, key_topic=topic, topic_distinct={
+        t: c for t, c in vstats.topic_distinct.items() if c > 0})
+
+
+def paper_spec(name: str, n: int):
+    from repro_torch.core import CacheSpec
+
+    (f_s, f_t, f_ts), _ = PAPER_STRATEGIES[name]
+    return CacheSpec.from_strategy(name, n, f_s=f_s, f_t=f_t, f_ts=f_ts)
+
+
+def paper_comparison(device):
+    """The six strategies on the default SynthConfig stream: the card's
+    reuse-distance hits, the host's exact simulation and the reference's
+    counts all equal; Bélády's bound beside them."""
+    from repro_torch.core import (TrainStats, VecLog, VecStats, analyze, belady_hits, hit_rate,
+                                  simulate)
+    from repro_torch.querylog import SynthConfig, generate_stream
+
+    keys, true_topic = generate_stream(SynthConfig())
+    n_train = int(0.7 * len(keys))
+    train, test = keys[:n_train].tolist(), keys[n_train:].tolist()
+    topic = mask_unseen(true_topic, keys, n_train)
+    log = VecLog(keys, n_train, topic)
+    vst = VecStats.from_log(log)
+    shortcut = masked_stats(VecStats.from_log(VecLog(keys, n_train, true_topic)), topic)
+    check(all(np.array_equal(getattr(vst, f.name), getattr(shortcut, f.name))
+              if isinstance(getattr(vst, f.name), np.ndarray)
+              else getattr(vst, f.name) == getattr(shortcut, f.name)
+              for f in dataclasses.fields(vst)), "masked_stats equals VecStats.from_log")
+    tstats = TrainStats.from_stream(train, {k: int(t) for k, t in enumerate(topic) if t >= 0})
+    n_test = len(test)
+    hits = {}
+    for name, (_, want) in PAPER_STRATEGIES.items():
+        spec = paper_spec(name, PAPER_N)
+        layout = spec.to_layout(vst)
+        t0 = time.perf_counter()
+        ana = analyze(log, layout, device=device)
+        card = ana.hits(layout.capacity)
+        rate = hit_rate(log, layout, analysis=ana)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exact = simulate(spec.to_exact(tstats), test, warm_keys=train).hits
+        t_exact = time.perf_counter() - t0
+        print(f"analysis/paper: {name} N={PAPER_N}: card {card} hits ({rate:.6f}) in "
+              f"{t_card:.3f} s, exact simulation {exact} in {t_exact:.3f} s, reference {want}")
+        check(card == exact == want, f"{name}: card {card}, exact {exact}, reference {want}")
+        hits[name] = card
+    t0 = time.perf_counter()
+    opt = belady_hits(keys, PAPER_N, count_from=n_train)
+    print(f"analysis/paper: Bélády N={PAPER_N}: {opt} hits ({opt / n_test:.6f}) in "
+          f"{time.perf_counter() - t0:.3f} s, reference {PAPER_BELADY}")
+    check(opt == PAPER_BELADY, f"Bélády {opt} hits, reference {PAPER_BELADY}")
+    sdc = hits["SDC"]
+    for name in ("STDf_LRU", "STDv_LRU", "STDv_SDC_C2"):
+        gain = hits[name] - sdc
+        print(f"analysis/paper: {name} over SDC {gain / n_test:+.6f}, gap reduction "
+              f"(STD - SDC) / (Bélády - SDC) {gain / (opt - sdc):.4f}")
+
+
+def rd_against_cpu_and_oracle(device, keys):
+    """The card's reuse distances on prefixes of the x100 stream against the
+    CPU's (``torch.sort`` there is another implementation) and the Fenwick
+    oracle's."""
+    from repro_torch.core.fast import partitioned_prev
+    from repro_torch.core.torch_sim import reuse_distances, reuse_distances_py
+
+    head = torch.from_numpy(keys[:RD_CPU_POSITIONS]).to(device)
+    _, prev = partitioned_prev(head, torch.zeros_like(head))  # one partition
+    prev = prev.cpu().numpy()
+    t0 = time.perf_counter()
+    card = reuse_distances(prev, device)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = reuse_distances(prev, "cpu")
+    t_cpu = time.perf_counter() - t0
+    check(np.array_equal(card, cpu), "the card's reuse distances equal the CPU's")
+    few = prev[:RD_ORACLE_POSITIONS]
+    t0 = time.perf_counter()
+    oracle = reuse_distances_py(few)
+    t_py = time.perf_counter() - t0
+    check(np.array_equal(reuse_distances(few, device), oracle),
+          "the card's reuse distances equal the Fenwick oracle's")
+    check(np.array_equal(card[:RD_ORACLE_POSITIONS], oracle), "a prefix's distances are its own")
+    print(f"analysis/rd: {len(prev)} positions ({int((card >= 0).sum())} repeats) equal on the "
+          f"card ({t_card:.3f} s with the copies) and the CPU ({t_cpu:.3f} s); the first "
+          f"{len(few)} equal the Fenwick oracle's ({t_py:.3f} s)")
+
+
+def analysis_against_cpu(device, log, layout):
+    """``analyze`` on the card against the CPU (another sort's
+    implementation) on the first ``RD_CPU_POSITIONS`` of the x100 stream,
+    70% of them warm-up, under a layout of many partitions: the densified
+    partition ids (``DYNAMIC_PART`` is 10**9), the chained sorts and the
+    scatter back to stream positions, integer for integer."""
+    from repro_torch.core import ALWAYS_HIT, NO_CACHE, VecLog, analyze
+
+    n = RD_CPU_POSITIONS
+    head = VecLog(log.keys[:n], int(0.7 * n), log.key_topic)
+    t0 = time.perf_counter()
+    card = analyze(head, layout, device=device)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = analyze(head, layout, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    check(torch.equal(card.part_pos.cpu(), cpu.part_pos), "the card routes as the CPU does")
+    check(torch.equal(card.rd.cpu(), cpu.rd), "the card's partitioned distances equal the CPU's")
+    hits = card.hits(layout.capacity)
+    check(hits == cpu.hits(layout.capacity), "the card's hits equal the CPU's")
+    hist_card, hist_cpu = card.hit_histograms(HIST_CAP), cpu.hit_histograms(HIST_CAP)
+    check(hist_card.keys() == hist_cpu.keys()
+          and all(np.array_equal(hist_card[p], hist_cpu[p]) for p in hist_cpu),
+          "the card's histograms equal the CPU's")
+    parts = torch.unique(cpu.part_pos)
+    n_parts = int(((parts != ALWAYS_HIT) & (parts != NO_CACHE)).sum())
+    print(f"analysis/x100: analyze on the first {n} positions, {n_parts} LRU partitions, equal "
+          f"on the card ({t_card:.3f} s with the copies) and the CPU ({t_cpu:.3f} s): routes, "
+          f"distances, {hits} hits, histograms to {HIST_CAP}")
+
+
+def check_trace(ana, layout, max_cap: int):
+    """Cheap invariants at full size: each distance below the position
+    within its partition, the histograms monotone and ending at the counted
+    repeats below ``max_cap``, ``hits`` at the layout's capacities equal to
+    the histograms read there.  Returns ``(static, topic, dynamic)`` hits."""
+    from repro_torch.core import ALWAYS_HIT, DYNAMIC_PART, NO_CACHE
+
+    live = torch.nonzero((ana.part_pos != ALWAYS_HIT) & (ana.part_pos != NO_CACHE)).squeeze(1)
+    part = ana.part_pos[live]
+    order = torch.sort(part, stable=True).indices
+    part = part[order]
+    within = torch.empty_like(order)
+    within[order] = torch.arange(len(order), device=order.device) - torch.searchsorted(part, part)
+    rd = ana.rd[live]
+    check(bool((rd < within).all()),
+          "every reuse distance is below its position within its partition")
+    del live, part, order, within, rd
+    hist = ana.hit_histograms(max_cap)
+    sel = ana.count_mask & (ana.rd >= 0) & (ana.rd < max_cap)
+    parts, counts = torch.unique(ana.part_pos[sel], return_counts=True)
+    below = dict(zip(parts.tolist(), counts.tolist()))
+    for p, h in hist.items():
+        check(bool(np.all(h[1:] >= h[:-1])) and h[0] == 0, f"partition {p}'s histogram is monotone")
+        check(int(h[-1]) == below.get(p, 0), f"partition {p}'s histogram ends at its repeats")
+    static = ana.static_hits()
+    per = {p: int(hist[p][min(c, max_cap)]) if p in hist else 0
+           for p, c in layout.capacity.items()}
+    check(ana.hits(layout.capacity) == static + sum(per.values()),
+          "hits at the layout's capacities equal the histograms read there")
+    dyn = per.get(DYNAMIC_PART, 0)
+    return static, sum(per.values()) - dyn, dyn
+
+
+def phase_analysis(device, keys, true_topic, n_train, vstats, served):
+    """The paper's hit-rate engine: the comparison of the six strategies on
+    the 2M-request stream held to the exact simulator and the reference,
+    the card's reuse distances held to the CPU's and the oracle's, then
+    every strategy and one LRU of every size analysed on the x100 stream
+    at the serving cache's size."""
+    from repro_torch.core import VecLog, analyze, lru_hits_all_sizes
+
+    t0 = time.perf_counter()
+    paper_comparison(device)
+    print(f"analysis/paper: {time.perf_counter() - t0:.3f} s")
+    rd_against_cpu_and_oracle(device, keys)
+
+    topic = mask_unseen(true_topic, keys, n_train)
+    log = VecLog(keys, n_train, topic)
+    stats = masked_stats(vstats, topic)
+    n_test = len(keys) - n_train
+    n_served = N_BATCHES * B
+    served_mask = torch.zeros(len(keys), dtype=torch.bool, device=device)
+    served_mask[n_train : n_train + n_served] = True
+    peak = 0
+    for name in X100_STRATEGIES:
+        t0 = time.perf_counter()
+        layout = paper_spec(name, ENTRIES).to_layout(stats)
+        t_layout = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ana = analyze(log, layout, device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        mem = torch.cuda.max_memory_allocated()
+        peak = max(peak, mem)
+        t0 = time.perf_counter()
+        static, topical, dyn = check_trace(ana, layout, ENTRIES)
+        hits = static + topical + dyn
+        print(f"analysis/x100: {name} N={ENTRIES}: hit rate {hits / n_test:.6f} (static "
+              f"{static / n_test:.6f}, topic {topical / n_test:.6f}, dynamic {dyn / n_test:.6f}) "
+              f"over {n_test} requests; analyze {secs:.3f} s on the card (host clock, "
+              f"synchronised), peak {mem / 1e9:.3f} GB; layout {t_layout:.3f} s on the host, "
+              f"checks {time.perf_counter() - t0:.3f} s")
+        if name == "STDv_SDC_C2":
+            analysis_against_cpu(device, log, layout)
+        if name == "STDv_LRU":
+            exact = dataclasses.replace(ana, count_mask=served_mask).hits(layout.capacity)
+            print(f"analysis/x100: STDv_LRU on the {n_served} served requests: exact LRU layers "
+                  f"{exact / n_served:.6f}, the serve phase's set-associative cache "
+                  f"{served['one_call']['stats'].hit_rate:.6f} (planned with the unmasked "
+                  f"topics, warmed by the last {N_WARM} training batches)")
+        del ana
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lru = lru_hits_all_sizes(log, ENTRIES, device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    mem = torch.cuda.max_memory_allocated()
+    peak = max(peak, mem)
+    check(len(lru) == ENTRIES + 1 and lru[0] == 0 and bool(np.all(np.diff(lru) >= 0)),
+          "an LRU's hits are monotone in its size")
+    sizes = [ENTRIES >> k for k in (12, 8, 4, 2, 0)]
+    print(f"analysis/x100: one LRU of every size to {ENTRIES} from one pass in {secs:.3f} s, "
+          f"peak {mem / 1e9:.3f} GB: hit rate "
+          + ", ".join(f"{n} {lru[n] / n_test:.6f}" for n in sizes))
+    del served_mask
+    torch.cuda.empty_cache()
+    print(f"analysis/memory: peak {peak / 1e9:.3f} GB allocated in an analysis")
+    return dict(peak=peak)
 
 
 # -- phase 7: the topic pipeline --------------------------------------------------
@@ -2400,6 +2684,10 @@ def main() -> int:
     brk = phase("broker", phase_broker, device, vstats, ccfg, static, true_topic, train, warm,
                 serve, served)
     cl = phase("cluster", phase_cluster, device, vstats, true_topic, warm, serve, served)
+    # the analysis resets the peak to measure its own: keep the run's for the line after lm
+    early_peak = torch.cuda.max_memory_allocated()
+    ana = phase("analysis", phase_analysis, device, keys, true_topic, n_train, vstats, served)
+    early_peak = max(early_peak, ana["peak"])
     del vstats
     topics = phase("topics", phase_topics, device, cfg, keys, true_topic, n_train, served,
                    static)
@@ -2409,8 +2697,9 @@ def main() -> int:
     lm = {k: lm[k] for k in ("launches", "args")}
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"memory: peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated through "
-          f"phase lm; {torch.cuda.memory_allocated() / 1e9:.3f} GB after releasing the LM")
+    print(f"memory: peak {max(early_peak, torch.cuda.max_memory_allocated()) / 1e9:.3f} GB "
+          f"allocated through phase lm; {torch.cuda.memory_allocated() / 1e9:.3f} GB after "
+          f"releasing the LM")
     torch.cuda.reset_peak_memory_stats()
     rec = phase("recsys", phase_recsys, device)
     print(f"memory: peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated in phase "

@@ -5,10 +5,10 @@ structure (paper Sec. 3.2) and compiles to the vectorized engine's
 :class:`~repro_torch.core.fast.Layout` (:meth:`CacheSpec.to_layout`) and to
 the device cache's ``DeviceCacheConfig`` (:meth:`CacheSpec.to_device`,
 with :meth:`CacheSpec.device_static_keys` for the static preload), and
-round-trips through JSON that either package reads.  The exact
-per-request simulator (``repro.core.policies``) is not ported yet:
-:meth:`CacheSpec.to_exact` and :meth:`AdmissionSpec.to_policy` raise
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+round-trips through JSON that either package reads; it also compiles to the
+exact per-request simulator's :class:`~repro_torch.core.policies.CacheUnit`
+(:meth:`CacheSpec.to_exact`, with :meth:`AdmissionSpec.to_policy` for the
+admission gate), so all three engines evaluate the same cache.
 
 Layer model (paper Sec. 3.2)::
 
@@ -33,20 +33,24 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
-from ..querylog.synth import NO_TOPIC
 from . import fast
 from .alloc import proportional_allocation, uniform_allocation
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1 item 11)"
-    )
-
+from .policies import (
+    NO_TOPIC,
+    AdmissionPolicy,
+    CacheUnit,
+    LRUCache,
+    NullCache,
+    PollutingFilter,
+    SDCCache,
+    STDCache,
+    SingletonOracle,
+)
+from .stats import TrainStats
 
 SPEC_VERSION = 1
 
@@ -173,10 +177,33 @@ class AdmissionSpec:
 
     # -- compilers ---------------------------------------------------------
 
-    def to_policy(self, *args, **kwargs):
-        """Exact-simulator admission policy: the exact simulator
-        (``repro.core.policies``) is not ported yet."""
-        raise _not_ported("AdmissionSpec.to_policy (the exact simulator's policies)")
+    def to_policy(
+        self,
+        train_freq: Optional[Mapping] = None,
+        n_terms: Optional[Mapping] = None,
+        n_chars: Optional[Mapping] = None,
+        stream=None,
+    ) -> Optional[AdmissionPolicy]:
+        """Exact-simulator admission policy (None for admit-all)."""
+        if self.kind == "all":
+            return None
+        if self.kind == "polluting":
+            if train_freq is None or n_terms is None or n_chars is None:
+                raise ValueError(
+                    "polluting admission needs train_freq, n_terms and n_chars "
+                    "maps (an empty filter would reject every key)"
+                )
+            return PollutingFilter(
+                train_freq=train_freq,
+                n_terms=n_terms,
+                n_chars=n_chars,
+                min_train_freq=self.min_train_freq,
+                max_terms=self.max_terms,
+                max_chars=self.max_chars,
+            )
+        if stream is None:
+            raise ValueError("singleton_oracle admission needs the full stream")
+        return SingletonOracle.from_stream(stream)
 
     def to_mask(self, log) -> Optional[np.ndarray]:
         """Per-key admitted mask for the vectorized engine (``VecLog`` in)."""
@@ -227,6 +254,46 @@ class AdmissionSpec:
             return ok & admitted[np.clip(q, 0, max(n - 1, 0))]
 
         return gate
+
+
+def _per_topic(value: Mapping[int, int], topic: np.ndarray) -> np.ndarray:
+    """Each key's ``value`` of its topic (0 for a topic without one)."""
+    if not value:
+        return np.zeros(len(topic), dtype=np.int64)
+    ids = np.array(sorted(value), dtype=np.int64)
+    vals = np.array([value[t] for t in ids.tolist()], dtype=np.int64)
+    j = np.clip(np.searchsorted(ids, topic), 0, len(ids) - 1)
+    return np.where(ids[j] == topic, vals[j], 0)
+
+
+def _count_per_topic(topics: np.ndarray) -> Dict[int, int]:
+    return {int(t): int(c) for t, c in zip(*np.unique(topics, return_counts=True))}
+
+
+# ---------------------------------------------------------------------------
+# Exact-engine section helper
+# ---------------------------------------------------------------------------
+
+
+def _topic_section(
+    capacity: int,
+    topic_queries_by_freq: List,
+    f_ts: Optional[float],
+    exclude: frozenset = frozenset(),
+) -> CacheUnit:
+    """One per-topic section: LRU when ``f_ts`` is None, else SDC."""
+    if capacity <= 0:
+        return NullCache()
+    if f_ts is None:
+        return LRUCache(capacity)
+    n_static = int(round(f_ts * capacity))
+    static_keys = []
+    for k in topic_queries_by_freq:
+        if len(static_keys) >= n_static:
+            break
+        if k not in exclude:
+            static_keys.append(k)
+    return SDCCache(static_keys, capacity - len(static_keys))
 
 
 # ---------------------------------------------------------------------------
@@ -381,10 +448,75 @@ class CacheSpec:
 
     # -- exact engine ------------------------------------------------------
 
-    def to_exact(self, stats=None):
-        """Compile to the exact per-request cache: the exact simulator
-        (``repro.core.policies``) is not ported yet."""
-        raise _not_ported("CacheSpec.to_exact (the exact simulator)")
+    def to_exact(self, stats: TrainStats) -> CacheUnit:
+        """Compile to the exact per-request cache (``repro.core.policies``).
+
+        The exact engine applies admission at replay time, so a spec
+        carrying a non-trivial :class:`AdmissionSpec` must be compiled in
+        two explicit steps (a silent admit-all would misreport hit rates):
+        ``spec.admission.to_policy(...)`` handed to ``simulate`` and
+        ``spec.without_admission().to_exact(stats)`` for the structure.
+        """
+        if not self.admission.trivial:
+            raise ValueError(
+                "spec carries a non-trivial AdmissionSpec; compile it with "
+                "spec.admission.to_policy(...) and pass it to simulate(), "
+                "then build the cache with spec.without_admission().to_exact()"
+            )
+        n_s, n_t, n_d = self.sizes()
+        t = self.topic
+
+        if t.include_notopic:
+            # every query belongs to a section; no-topic = topic k+1
+            extra = (max(stats.topics) + 1) if stats.topics else 0
+            distinct = dict(stats.topic_distinct)
+            distinct[extra] = len(stats.notopic_by_freq)
+            sizes = self._section_sizes(distinct, n_t)
+            by_freq = dict(stats.topic_by_freq)
+            by_freq[extra] = stats.notopic_by_freq
+            static_keys = self._static_train_keys(stats, n_s)
+            exclude = (
+                frozenset(static_keys) if t.exclude_global_static else frozenset()
+            )
+            f_ts = t.static_fraction if t.section == "sdc" else None
+
+            def topic_or_extra(key, _topic=stats.topic, _extra=extra):
+                tau = _topic(key)
+                return tau if tau != NO_TOPIC else _extra
+
+            sections = {
+                tau: _topic_section(sizes[tau], by_freq.get(tau, []), f_ts, exclude)
+                for tau in sizes
+            }
+            return STDCache(static_keys, sections, n_d, topic_or_extra)
+
+        if t.fraction == 0:
+            # degenerate S+D structure: plain LRU / SDC
+            if n_s == 0:
+                return LRUCache(n_d)
+            return SDCCache(self._static_train_keys(stats, n_s), n_d)
+
+        sizes = self._section_sizes(stats.topic_distinct, n_t)
+        static_keys = self._static_train_keys(stats, n_s)
+        f_ts = t.static_fraction if t.section == "sdc" else None
+        exclude = (
+            frozenset(static_keys)
+            if (t.section == "sdc" and t.exclude_global_static)
+            else frozenset()
+        )
+        sections = {
+            tau: _topic_section(
+                sizes[tau], stats.topic_by_freq.get(tau, []), f_ts, exclude
+            )
+            for tau in sizes
+        }
+        return STDCache(static_keys, sections, n_d, stats.topic)
+
+    def _static_train_keys(self, stats: TrainStats, n_s: int) -> List:
+        ranked = (
+            stats.notopic_by_freq if self.static.source == "notopic" else stats.by_freq
+        )
+        return ranked[:n_s]
 
     # -- vectorized engine -------------------------------------------------
 
@@ -425,20 +557,23 @@ class CacheSpec:
             distinct[extra] = int(((topic == NO_TOPIC) & seen).sum())
             sizes = self._section_sizes(distinct, n_t)
             key_part = np.where(topic == NO_TOPIC, extra, topic).astype(np.int64)
-            cap: Dict[int, int] = {}
-            for tau, c_t in sizes.items():
-                tau = int(tau)
-                m = (
-                    int(round(t.static_fraction * c_t))
-                    if t.section == "sdc"
-                    else 0
-                )
-                if tau == extra:
-                    ts = (topic == NO_TOPIC) & (stats.notopic_rank < m)
-                else:
-                    ts = (topic == tau) & (stats.topic_rank < m)
-                key_part[ts] = fast.ALWAYS_HIT
-                cap[tau] = c_t - int(ts.sum())
+            m = {
+                int(tau): int(round(t.static_fraction * c_t)) if t.section == "sdc" else 0
+                for tau, c_t in sizes.items()
+            }
+            # each section's m most frequent queries are static: the
+            # no-topic ones rank among the no-topic keys (section ``extra``)
+            notopic = topic == NO_TOPIC
+            m_key = np.where(notopic, m[extra], _per_topic(
+                {tau: c for tau, c in m.items() if tau != extra}, topic))
+            ts = np.where(notopic, stats.notopic_rank, stats.topic_rank) < m_key
+            key_part[ts] = fast.ALWAYS_HIT
+            n_ts = _count_per_topic(topic[ts & ~notopic])
+            n_ts_extra = int((ts & notopic).sum())
+            cap: Dict[int, int] = {
+                int(tau): c_t - (n_ts_extra if tau == extra else n_ts.get(int(tau), 0))
+                for tau, c_t in sizes.items()
+            }
             key_part[global_static] = fast.ALWAYS_HIT
             if n_d > 0:
                 cap[fast.DYNAMIC_PART] = n_d
@@ -454,21 +589,26 @@ class CacheSpec:
             cap = {}
             if t.section == "sdc":
                 f_ts = t.static_fraction
+                m_key = _per_topic(
+                    {int(tau): int(round(f_ts * c_t)) for tau, c_t in sizes.items()}, topic
+                )
+                if t.exclude_global_static:
+                    # the m best *non-S* topic queries, by global freq order:
+                    # group the eligible keys of the frequency order by topic
+                    # (a stable sort keeps the frequency order in each topic)
+                    elig = (topic != NO_TOPIC) & ~global_static
+                    sel = stats.by_freq[elig[stats.by_freq]]
+                    grouped = sel[np.argsort(topic[sel], kind="stable")]
+                    t_of = topic[grouped]
+                    rank = np.arange(len(grouped)) - np.searchsorted(t_of, t_of, side="left")
+                    ts = np.zeros(nq, dtype=bool)
+                    ts[grouped[rank < m_key[grouped]]] = True
+                else:
+                    ts = (topic != NO_TOPIC) & (stats.topic_rank < m_key)
+                key_part[ts] = fast.ALWAYS_HIT
+                n_ts = _count_per_topic(topic[ts])
                 for tau, c_t in sizes.items():
-                    tau = int(tau)
-                    m = int(round(f_ts * c_t))
-                    mask_t = topic == tau
-                    if t.exclude_global_static:
-                        # the m best *non-S* topic queries, by global freq order
-                        elig = mask_t & ~global_static
-                        order = stats.by_freq[elig[stats.by_freq]]
-                        ts_keys = order[:m]
-                    else:
-                        ts_keys = np.flatnonzero(mask_t & (stats.topic_rank < m))
-                    topic_static = np.zeros(nq, dtype=bool)
-                    topic_static[ts_keys] = True
-                    key_part[mask_t & topic_static] = fast.ALWAYS_HIT
-                    cap[tau] = c_t - len(ts_keys)
+                    cap[int(tau)] = c_t - n_ts.get(int(tau), 0)
             else:
                 cap = {int(tau): int(c) for tau, c in sizes.items()}
             cap[fast.DYNAMIC_PART] = n_d

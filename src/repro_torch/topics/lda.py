@@ -12,8 +12,9 @@ paper Sec. 3.3).
   card, its plain version on the CPU).  The reference evaluates the same
   sum sparsely on the host.
 
-The collapsed Gibbs sampler (``repro.topics.lda.gibbs_train``), a
-sequential reference trainer off the pipeline's path, is not ported yet.
+* :func:`gibbs_train` -- the reference's collapsed Gibbs sampler, a
+  sequential trainer off the pipeline's path: numpy on the host with the
+  reference's draws, its ``phi`` moved to the model's device.
 
 Every entry point that makes tensors takes ``device`` ("cuda" unless the
 caller passes "cpu"); the others run where their inputs are.
@@ -21,7 +22,7 @@ caller passes "cpu"); the others run where their inputs are.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -215,10 +216,48 @@ def infer_argmax(
     return top, conf
 
 
-def gibbs_train(*args, **kwargs) -> LDAModel:
-    """The collapsed Gibbs sampler is not ported yet (ROADMAP Queue 1):
-    use :func:`em_train`."""
-    raise NotImplementedError(
-        "repro_torch.topics.gibbs_train is not ported yet (ROADMAP Queue 1); "
-        "the pipeline trains with em_train"
-    )
+def gibbs_train(
+    docs: Sequence[np.ndarray],
+    n_topics: int,
+    n_words: int,
+    n_iters: int = 100,
+    alpha: float = 0.1,
+    beta: float = 0.01,
+    seed: int = 0,
+    device="cuda",
+) -> LDAModel:
+    """Collapsed Gibbs sampling LDA (reference; paper Alg. 2 inverted).
+
+    Per-token sequential sampling on the host, the reference's draws from
+    a numpy ``Generator`` seeded ``seed`` in the same order, so ``phi`` is
+    the reference's; it lands on ``device`` as float32."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    k, v = n_topics, n_words
+    n_dk = np.zeros((len(docs), k), dtype=np.int64)
+    n_kw = np.zeros((k, v), dtype=np.int64)
+    n_k = np.zeros(k, dtype=np.int64)
+    z: List[np.ndarray] = []
+    for d, toks in enumerate(docs):
+        zd = rng.integers(0, k, size=len(toks))
+        z.append(zd)
+        np.add.at(n_dk[d], zd, 1)
+        np.add.at(n_kw, (zd, np.asarray(toks)), 1)
+        np.add.at(n_k, zd, 1)
+    for _ in range(n_iters):
+        for d, toks in enumerate(docs):
+            zd = z[d]
+            for i, w in enumerate(toks):
+                t_old = zd[i]
+                n_dk[d, t_old] -= 1
+                n_kw[t_old, w] -= 1
+                n_k[t_old] -= 1
+                p = (n_dk[d] + alpha) * (n_kw[:, w] + beta) / (n_k + v * beta)
+                p = p / p.sum()
+                t_new = rng.choice(k, p=p)
+                zd[i] = t_new
+                n_dk[d, t_new] += 1
+                n_kw[t_new, w] += 1
+                n_k[t_new] += 1
+    phi = (n_kw + beta) / (n_kw.sum(axis=1, keepdims=True) + v * beta)
+    return LDAModel.from_numpy(phi.astype(np.float32), alpha, beta, device=dev)

@@ -34,6 +34,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.serving.cluster, repro_torch.loadgen, repro_torch.loadgen.arrivals\n"
         "import repro_torch.loadgen.harness, repro_torch.loadgen.inject, repro_torch.loadgen.slo\n"
         "import repro_torch.launch, repro_torch.launch.mesh\n"
+        "import repro_torch.core.rd_offline, repro_torch.core.torch_sim, repro_torch.core.stats\n"
+        "import repro_torch.core.policies, repro_torch.core.build, repro_torch.core.simulate\n"
+        "import repro_torch.core.belady, repro_torch.querylog.parse\n"
         "from repro_torch.launch.serve import main\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

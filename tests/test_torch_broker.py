@@ -173,13 +173,17 @@ def test_brokers_on_one_cache_own_their_state():
 
 
 def test_what_is_not_ported_raises():
-    """Only the exact simulator's compilers (ROADMAP.md item 11) raise;
-    everything the broker takes works (the tests above and below)."""
+    """Named for the time when ``to_exact`` and ``to_policy`` raised: now
+    nothing of the spec raises for want of a port, the exact simulator's
+    compilers work (``tests/test_torch_core_exact.py`` holds them to the
+    reference), and the broker refuses only bad arguments."""
     spec = T.ServingSpec(cache=TC.CacheSpec.from_strategy("STDv_LRU", 128, 0.1, 0.6))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 11"):
-        spec.cache.to_exact(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 11"):
-        TC.AdmissionSpec(kind="polluting").to_policy({}, {}, {})
+    exact = spec.cache.to_exact(TC.TrainStats.from_stream([1, 2, 2], {2: 0}))
+    # (13, 77, 38) entries; the static layer holds the 2 training keys there are
+    assert isinstance(exact, TC.STDCache) and spec.cache.sizes() == (13, 77, 38)
+    assert (len(exact.static), exact.sections[0].capacity, exact.dynamic.capacity) == (2, 77, 38)
+    gate = TC.AdmissionSpec(kind="polluting").to_policy({}, {}, {})
+    assert isinstance(gate, TC.PollutingFilter) and not gate.admits(1)
     cache = _make(T).cache
     args = (cache, [_backend], lambda q: q % 4)
     with pytest.raises(ValueError):

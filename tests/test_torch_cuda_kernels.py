@@ -1039,3 +1039,38 @@ def test_four_shard_cluster_on_the_card_equals_the_host_engine_cluster(cuda):
     same_state()
     card.close()
     host.close()
+
+
+@pytest.fixture(scope="module")
+def analysis_log():
+    """A seeded 2**20-request ``SynthConfig`` stream, 70% training, keys unseen
+    in training without a topic, and its ``VecStats``."""
+    from repro_torch.core import NO_TOPIC, VecLog, VecStats
+    from repro_torch.querylog import SynthConfig, generate_stream
+
+    keys, topic = generate_stream(SynthConfig(n_requests=1 << 20, seed=3))
+    n_train = int(0.7 * len(keys))
+    topic = topic.copy()
+    topic[np.bincount(keys[:n_train], minlength=len(topic)) == 0] = NO_TOPIC
+    log = VecLog(keys=keys, n_train=n_train, key_topic=topic)
+    return log, VecStats.from_log(log)
+
+
+@pytest.mark.parametrize("strategy", ["SDC", "STDf_LRU", "STDv_LRU", "STDv_SDC_C1",
+                                      "STDv_SDC_C2", "Tv_SDC"])
+def test_analysis_on_the_card_equals_the_cpu(cuda, analysis_log, strategy):
+    """The reuse-distance engine's sorts and rank queries on the card give
+    the CPU's arrays and hit counts, integer for integer."""
+    from repro_torch.core import analyze, make_layout
+
+    log, stats = analysis_log
+    layout = make_layout(strategy, 1 << 15, stats, f_s=0.5, f_t=0.4, f_ts=0.5)
+    card = analyze(log, layout, device=cuda)
+    cpu = analyze(log, layout, device="cpu")
+    assert card.rd.device.type == "cuda"
+    for f in ("part_pos", "rd", "count_mask"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    assert card.hits(layout.capacity) == cpu.hits(layout.capacity) > 0
+    hist, want = card.hit_histograms(1 << 15), cpu.hit_histograms(1 << 15)
+    assert list(hist) == list(want)
+    assert all(np.array_equal(hist[p], want[p]) for p in want)

@@ -7,7 +7,7 @@ on small seeded logs.
 * ``BagOfWords.from_csr``: the reference's ``from_docs`` COO, element for
   element.
 * ``em_train``: the same ``phi`` within rtol 1e-6 (float64 sums in another
-  order).
+  order); ``gibbs_train``: the same ``phi`` bit for bit (the same numpy draws).
 * classification with a ``phi`` carried across (``LDAModel.from_numpy``):
   ``key_topic`` identical; confidences within rtol 1e-4
   (``tests/test_kernels.py``'s): a confidence is a softmax of score
@@ -105,6 +105,16 @@ def test_em_train_equals_reference(logs, chunk):
     assert got.phi.dtype == torch.float32 and got.phi.shape == want.phi.shape
     np.testing.assert_allclose(got.phi.numpy(), want.phi, rtol=1e-6, atol=0)
     np.testing.assert_allclose(got.log_phi().numpy(), want.log_phi(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+def test_gibbs_train_equals_reference(logs, seed):
+    ref, _ = logs["small"]
+    docs = [ref.docs[q] for q in list(ref.docs)[:40]]
+    want = JL.gibbs_train(docs, n_topics=6, n_words=256, n_iters=3, seed=seed)
+    got = TL.gibbs_train(docs, n_topics=6, n_words=256, n_iters=3, seed=seed, device="cpu")
+    assert got.phi.dtype == torch.float32 and np.array_equal(got.phi.numpy(), want.phi)
+    assert (got.alpha, got.beta) == (want.alpha, want.beta)
 
 
 def test_classification_with_phi_carried_across(logs):
@@ -229,5 +239,5 @@ def test_entry_points_run_on_the_card_by_default(logs):
         TP.run_pipeline(port)
     with pytest.raises(RuntimeError):
         TL.BagOfWords.from_csr(np.array([0, 1]), np.array([3]), 256)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError):
         TL.gibbs_train([np.array([1, 2])], 2, 4)
