@@ -135,7 +135,36 @@ Phases (any failure raises and exits non-zero):
    CLI's miss handler) answers one batch of the serve phase's misses, its
    ids held to forward's top-k.  The LM's weights and KV cache are then
    released (the peak memory is printed);
-9. recsys: two-tower retrieval at its full published width (8M x 256 user
+9. train: training on the card (``repro_torch.launch.steps.build_lm_step``
+   and ``build_recsys_step``'s train kinds, AdamW).  gemma-2b at full
+   published width at train_4k (seq_len 4096, remat, 2.51B bf16 parameters
+   from a seeded generator, f32 moments), the global batch cut from 256 to
+   ``TRAIN_BATCH``: first, cut to ``TRAIN_REMAT_LAYERS`` layers, the
+   gradients with remat equal to those without, bit for bit, under
+   deterministic algorithms (the cost of those printed); then
+   ``TRAIN_STEPS`` steps on ``SyntheticLM``: each loss finite, step 0's
+   equal to a no-grad ``forward`` + ``cross_entropy`` bit for bit, and
+   step 0's AdamW update of sampled entries of ``TRAIN_ADAMW_LEAVES``
+   within one bf16 ulp of the formula in float64 on the host; ms per step
+   (host clock, synchronised, median after the first), tokens/s, the MFU
+   (``model_flops`` over the H100's 989.4 bf16 TFLOP/s), the peak memory
+   and a profiled two-step window (device busy, idle share, the top device
+   ops).  gemma-2b's smoke config in f32 trained ``TRAIN_SMOKE_STEPS``
+   steps on the card and on the CPU from the same weights: the losses
+   within ``TRAIN_SMOKE_RTOL``, the last five at least 0.1 below the first
+   five.  The training CLI (``python -m repro_torch.launch.train --device
+   cuda``) three times as ``tests/test_fault_tolerance.py`` runs it:
+   uninterrupted, killed at step 30 (exit 42, latest checkpoint 20), and
+   resumed from 20; the step-59 parameters bit-equal.  Two-tower at full
+   width (3.07B f32 parameters) at train_batch cut to ``TT_TRAIN_BATCH``:
+   its first step through the ``embedding_bag`` kernel and the same step
+   with ``use_kernel=False`` from the same state give equal losses and
+   updated parameters bit for bit (deterministic algorithms); then
+   ``TT_TRAIN_STEPS`` steps through the kernel, two launches a step
+   (counted), ms per step.  SASRec, DIN and MIND at full width and
+   train_batch 65,536: two steps each, the losses finite, the second
+   step's ms printed;
+10. recsys: two-tower retrieval at its full published width (8M x 256 user
    and 4M x 256 item tables, towers 1024-512-256, f32; 3.07B parameters,
    12.3 GB, drawn on the card from a seeded generator), its serve_p99
    (batch 512), serve_bulk (262,144) and retrieval_cand (1 user against
@@ -153,7 +182,7 @@ Phases (any failure raises and exits non-zero):
    beside its byte bound, the plain version and
    ``torch.nn.functional.embedding_bag``; and SASRec, DIN and MIND at their
    full published widths, one serve_p99 step each (ms and a checksum);
-10. kernels: each cache kernel against its plain PyTorch version on the
+11. kernels: each cache kernel against its plain PyTorch version on the
    card, tolerance 0 (integer state), on the serving path's own batch (the
    inputs of the second served batch's launch, captured), on a batch spread
    uniformly over the sets, on an edge-case batch (deep same-set
@@ -188,7 +217,8 @@ Phases (any failure raises and exits non-zero):
 
 The last three lines are one JSON object ``{"kernels": [...]}`` (each
 cache kernel's ``launches`` summed over the serve, broker and cluster
-phases, ``topic_score``'s over the topics and cluster phases, each counted
+phases, ``topic_score``'s over the topics and cluster phases,
+``embedding_bag``'s over the train and recsys phases, each counted
 from 0 just before its path; ``probe_and_commit``'s row also carries the
 migration launch's times and the hash reshard's), the
 card's name and power limit as ``nvidia-smi`` gives them, and
@@ -203,6 +233,7 @@ import gc
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -300,6 +331,44 @@ RECSYS_PROFILE = 3
 #: the card's steps against the CPU's at a small width: the CPU tests' f32
 #: tolerance (the GEMMs sum in other orders)
 RECSYS_RTOL, RECSYS_ATOL = 1e-5, 1e-6
+#: phase train: gemma-2b at train_4k's sequence length with the global batch
+#: cut from 256 to 2: bf16 weights and gradients are 5.0 GB each, the f32
+#: AdamW moments 20.1 GB, the f32 logits of 2 x 4096 tokens over 256,000
+#: words 8.4 GB and their gradient as much again; batch 4 would not fit 80 GB
+TRAIN_BATCH = 2
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 8
+TRAIN_PROFILE = 2
+#: the remat check's depth (full width): gradients with remat == without
+TRAIN_REMAT_LAYERS = 2
+#: the AdamW check: entries sampled from each of these leaves, held to the
+#: float64 formula (parameters within one bf16 ulp; moments within a few
+#: f32 roundings of the f64 ones: no cancellation at step 0, m and v start at 0)
+TRAIN_SAMPLE = 4096
+TRAIN_ADAMW_LEAVES = {
+    "embed": lambda t: t["embed"],
+    "layers/attn/q": lambda t: t["layers"]["attn"]["q"],
+    "layers/mlp/wo": lambda t: t["layers"]["mlp"]["wo"],
+    "layers/pre_attn_norm/scale": lambda t: t["layers"]["pre_attn_norm"]["scale"],
+    "final_norm/scale": lambda t: t["final_norm"]["scale"],
+}
+TRAIN_MOMENT_RTOL = 1e-6
+#: H100 SXM bf16 dense tensor-core rate (NVIDIA data sheet), for the MFU
+BF16_FLOP_PER_S = 989.4e12
+#: the card against the CPU: gemma-2b's smoke config (f32) trained this
+#: many AdamW steps on each; every loss within this relative tolerance (f32
+#: on both, sums in other orders: the CPU tests see the two packages' f32
+#: parameters 1e-7 apart after 19 steps)
+TRAIN_SMOKE_STEPS = 30
+TRAIN_SMOKE_RTOL = 1e-4
+#: the training CLI's kill-and-resume run (tests/test_fault_tolerance.py's)
+TRAIN_CLI = ("--arch", "gemma-2b", "--steps", "60", "--seq-len", "32", "--batch", "4",
+             "--ckpt-every", "20")
+#: two-tower's train_batch cut from 65,536 to 32,768: its (B, B) f32
+#: in-batch logits are 17.2 GB at 65,536, and their few live copies do not
+#: fit beside the 49.2 GB of parameters, gradients and moments
+TT_TRAIN_BATCH = 32768
+TT_TRAIN_STEPS = 3
 #: phase cluster's in-process CLI runs: the log's requests (half of them
 #: served) and the cache's entries
 CLI_REQUESTS = 2_000_000
@@ -1857,7 +1926,426 @@ def phase_lm(device, miss_ids):
                 step_s=step_s)
 
 
-# -- phase 9: recsys serving, two-tower through the embedding_bag kernel --------
+# -- phase 9: training: gemma-2b at full width, the CLI, the recsys losses -----
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` within the block (the
+    cuBLAS workspace is set for it at the script's start)."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+def timed(fn):
+    """``(fn(), seconds)`` on the host clock, synchronised before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+#: device kernels by kind, for a training step's breakdown (the first
+#: pattern that matches a kernel's name; cuBLAS names its f32 SIMT GEMMs
+#: ``*f32f32*`` or ``*sgemm*``)
+KERNEL_KINDS = (
+    ("f32 GEMM", re.compile(r"f32f32|sgemm")),
+    ("other GEMM", re.compile(r"gemm|nvjet|xmma", re.I)),
+    ("copy/memset", re.compile(r"Memcpy|Memset|copy", re.I)),
+    ("elementwise", re.compile(r"elementwise", re.I)),
+    ("reduction", re.compile(r"reduce|softmax|norm", re.I)),
+)
+
+
+def kernel_kinds(kern, n: int) -> str:
+    """Device ms per step by KERNEL_KINDS (the rest as "other") and each
+    kind's share of the busy time, over ``n`` profiled steps."""
+    total = sum(e.device_time_total for e in kern)
+    by = {}
+    for e in kern:
+        kind = next((k for k, rx in KERNEL_KINDS if rx.search(e.key)), "other")
+        by[kind] = by.get(kind, 0.0) + e.device_time_total
+    return "; ".join(f"{k} {v / n / 1e3:.3f} ms ({v / total:.4f})"
+                     for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
+
+
+def split_step(loss_fn, params, opt, batch, cfg, **kw):
+    """One more train step in its two halves, each synchronised: ms for the
+    loss and gradients, ms for the AdamW update."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.train import AdamWConfig, apply_updates
+
+    (_, grads), s_grad = timed(lambda: value_and_grad(loss_fn)(params, batch, cfg, **kw))
+    _, s_opt = timed(lambda: apply_updates(params, grads, opt, AdamWConfig()))
+    return s_grad * 1e3, s_opt * 1e3
+
+
+def adamw_sample(params, opt, idx):
+    """Float64 host copies of the sampled entries of each named leaf of the
+    parameters and both moments."""
+    return {name: tuple(t.detach().reshape(-1)[idx[name]].double().cpu()
+                        for t in (leaf(params.tree()), leaf(opt.mu), leaf(opt.nu)))
+            for name, leaf in TRAIN_ADAMW_LEAVES.items()}
+
+
+def check_adamw(before, after, grads, idx, step: int, cfg) -> str:
+    """Each sampled parameter within one bf16 ulp of the reference's AdamW
+    formula evaluated in float64 from the step's inputs (the clipped
+    gradients), the moments within TRAIN_MOMENT_RTOL."""
+    lr = cfg.lr * min(1.0, (step + 1) / max(cfg.warmup_steps, 1))
+    b1c, b2c = 1.0 - cfg.b1 ** (step + 1), 1.0 - cfg.b2 ** (step + 1)
+    worst_p, worst_m = 0.0, 0.0
+    for name, leaf in TRAIN_ADAMW_LEAVES.items():
+        p, m, v = before[name]
+        p2, m2, v2 = after[name]
+        g = leaf(grads).detach().reshape(-1)[idx[name]].double().cpu()
+        m_ref = cfg.b1 * m + (1 - cfg.b1) * g
+        v_ref = cfg.b2 * v + (1 - cfg.b2) * g * g
+        delta = (m_ref / b1c) / ((v_ref / b2c).sqrt() + cfg.eps) + cfg.weight_decay * p
+        p_ref = p - lr * delta
+        ulp = torch.finfo(torch.bfloat16).eps * 2.0 ** torch.floor(torch.log2(
+            p_ref.abs().clamp(min=torch.finfo(torch.bfloat16).tiny)))
+        err_p = float(((p2 - p_ref).abs() / ulp).max())
+        err_m = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                    for a, b in ((m2, m_ref), (v2, v_ref)))
+        check(err_p <= 1.0, f"AdamW on {name}: {err_p} bf16 ulps from the float64 formula")
+        check(err_m <= TRAIN_MOMENT_RTOL, f"AdamW moments on {name}: relative error {err_m}")
+        worst_p, worst_m = max(worst_p, err_p), max(worst_m, err_m)
+    return (f"{sum(len(i) for i in idx.values())} sampled entries of "
+            f"{', '.join(TRAIN_ADAMW_LEAVES)}: parameters within {worst_p:.3f} bf16 ulp of "
+            f"the float64 formula, moments within {worst_m:.3e} relative")
+
+
+def remat_check(device, cfg, tokens):
+    """Gradients with remat and without, bit for bit, at full width with
+    TRAIN_REMAT_LAYERS layers, under deterministic algorithms; and what the
+    deterministic algorithms cost there (ms per loss + gradients)."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_leaves
+
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_REMAT_LAYERS)
+    params = tf.init_params(torch.Generator(device=device).manual_seed(SEED + 41), cut)
+    vg = value_and_grad(tf.loss_fn)
+    batch = {"tokens": tokens}
+    out, ms = {}, {}
+    with deterministic():
+        for remat in (True, False):
+            out[remat] = vg(params, batch, dataclasses.replace(cut, remat=remat))
+        ms["deterministic"] = timed(lambda: vg(params, batch, cut))[1] * 1e3
+    vg(params, batch, cut)
+    ms["default"] = timed(lambda: vg(params, batch, cut))[1] * 1e3
+    (l1, g1), (l0, g0) = out[True], out[False]
+    check(torch.equal(l1, l0), "the loss with remat != without")
+    leaves = list(zip(tree_leaves(g1), tree_leaves(g0)))
+    check(all(torch.equal(a, b) for a, b in leaves), "gradients with remat != without")
+    n = sum(a.numel() for a, _ in leaves)
+    print(f"train/remat: gemma-2b at full width cut to {TRAIN_REMAT_LAYERS} layers, batch "
+          f"{tokens.shape[0]} x {tokens.shape[1]}: loss {float(l1):.6f} and all {n} gradient "
+          f"entries ({len(leaves)} leaves) with remat equal to those without, bit for bit "
+          f"(deterministic algorithms); loss + gradients {ms['default']:.3f} ms by default, "
+          f"{ms['deterministic']:.3f} ms deterministic")
+    return ms
+
+
+def gemma_train(device):
+    """gemma-2b at full published width through build_lm_step's train step
+    (remat, AdamW), TRAIN_STEPS steps on SyntheticLM."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_lm_step, value_and_grad
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import cross_entropy, tree_map
+    from repro_torch.train import AdamWConfig, SyntheticLM, apply_updates
+
+    arch = get_arch("gemma-2b")
+    shape = arch.shape("train_4k")
+    step = build_lm_step(arch, shape)
+    cfg = step.cfg
+    check(step.seq_len == TRAIN_SEQ and cfg.remat and step.optimizer == "adamw",
+          "train_4k: seq_len 4096, remat, AdamW")
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    tokens = [torch.from_numpy(data.batch(i)["tokens"]).to(device) for i in range(TRAIN_STEPS)]
+    det_ms = remat_check(device, cfg, tokens[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device=device).manual_seed(SEED), cfg)
+    opt = step.init_opt_state(params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == cfg.param_count() + cfg.d_model, "gemma-2b's parameter count")
+    flops = 6.0 * cfg.active_param_count() * TRAIN_BATCH * TRAIN_SEQ
+    check(step.model_flops == 6.0 * cfg.active_param_count() * shape.dims["global_batch"]
+          * TRAIN_SEQ, "train_4k's model_flops")
+    print(f"train/model: gemma-2b at full width ({n_params} {cfg.dtype} parameters, AdamW "
+          f"moments in f32, remat {cfg.remat}), train_4k: seq_len {TRAIN_SEQ}, global batch "
+          f"{shape.dims['global_batch']} cut to {TRAIN_BATCH}; set up in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    # step 0's loss without gradients, for the first-loss check
+    with torch.no_grad():
+        logits = tf.forward(params, tokens[0], cfg)[0]
+        want0 = cross_entropy(logits[:, :-1], tokens[0][:, 1:])
+        del logits
+    # step 0 from the train step's pieces, sampling the AdamW update
+    rng = np.random.default_rng(SEED + 43)
+    idx = {name: torch.from_numpy(rng.integers(0, leaf(params.tree()).numel(), TRAIN_SAMPLE))
+           for name, leaf in TRAIN_ADAMW_LEAVES.items()}
+    before = adamw_sample(params, opt, idx)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss0, grads = value_and_grad(tf.loss_fn)(params, {"tokens": tokens[0]}, cfg)
+    apply_updates(params, grads, opt, AdamWConfig())
+    torch.cuda.synchronize()
+    secs = [time.perf_counter() - t]
+    adamw_line = check_adamw(before, adamw_sample(params, opt, idx), grads, idx, 0,
+                             AdamWConfig())
+    del grads
+    losses = [loss0]
+    for i in range(1, TRAIN_STEPS):
+        (_, opt, out), s = timed(lambda: step.fn(params, opt, {"tokens": tokens[i]}))
+        secs.append(s)
+        losses.append(out["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"gemma-2b training losses are finite: {losses}")
+    check(float(loss0) == float(want0) and torch.equal(loss0, want0),
+          f"step 0's loss {float(loss0)} != the no-grad forward's {float(want0)}")
+    med = float(np.median(secs[1:]))
+    print(f"train/gemma-2b: losses {' '.join(f'{x:.6f}' for x in losses)}; step 0's equal to a "
+          f"no-grad forward + cross_entropy bit for bit")
+    print(f"train/gemma-2b: ms/step median {med * 1e3:.3f} over steps 1-{TRAIN_STEPS - 1} "
+          f"(host clock, synchronised; step 0 {secs[0] * 1e3:.3f}), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / med:.1f} tokens/s, model_flops {flops:.4e} a step, MFU "
+          f"{flops / med / BF16_FLOP_PER_S:.4f} of {BF16_FLOP_PER_S / 1e12:.1f} TFLOP/s (H100 "
+          f"SXM bf16 dense); peak {peak / 1e9:.3f} GB allocated")
+    print(f"train/adamw: step 0, {adamw_line}")
+
+    kern = device_kernels(
+        lambda: step.fn(params, opt, {"tokens": tokens[0]}),
+        lambda: [step.fn(params, opt, {"tokens": tokens[i]}) for i in range(TRAIN_PROFILE)],
+        "the gemma-2b train steps")
+    busy = sum(e.device_time_total for e in kern) / TRAIN_PROFILE / 1e3  # ms per step
+    top = sorted(kern, key=lambda e: -e.device_time_total)[:8]
+    names = "; ".join(f"{e.key[:70]} {e.device_time_total / TRAIN_PROFILE / 1e3:.3f}ms "
+                      f"x{e.count / TRAIN_PROFILE:.0f}" for e in top)
+    print(f"train/profile: device busy {busy:.3f} ms/step over {TRAIN_PROFILE} steps, "
+          f"{sum(e.count for e in kern) / TRAIN_PROFILE:.0f} device ops/step, idle share "
+          f"{1 - busy / (med * 1e3):.4f} of the unprofiled {med * 1e3:.3f} ms; by kind: "
+          f"{kernel_kinds(kern, TRAIN_PROFILE)}; top: {names}")
+    ms_grad, ms_opt = split_step(tf.loss_fn, params, opt, {"tokens": tokens[0]}, cfg)
+    print(f"train/split: one more step in halves: loss + gradients (forward, remat, backward) "
+          f"{ms_grad:.3f} ms, AdamW {ms_opt:.3f} ms ({ms_opt / (ms_grad + ms_opt):.4f} of "
+          f"the two)")
+    del params, opt, tokens
+    return dict(ms=med * 1e3, mfu=flops / med / BF16_FLOP_PER_S, peak=peak, det=det_ms)
+
+
+def smoke_against_cpu(device):
+    """gemma-2b's smoke config in f32, TRAIN_SMOKE_STEPS AdamW steps on the
+    card and on the CPU from the same weights and batches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import _train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import AdamWConfig, SyntheticLM, apply_updates, init_opt_state
+
+    cfg = get_arch("gemma-2b").smoke_config
+    check(cfg.dtype == torch.float32, "gemma-2b's smoke config is f32")
+    data = SyntheticLM(cfg.vocab_size, 32, 8, seed=SEED + 1)
+    host = tf.init_params(torch.Generator().manual_seed(SEED), cfg)
+    card = tf.ParamTree(tree_map(lambda t: t.detach().to(device, copy=True), host))
+    runs = {}
+    for name, params, dev in (("card", card, device), ("cpu", host, torch.device("cpu"))):
+        state = init_opt_state(params)
+        step = _train_step(tf.loss_fn, cfg, apply_updates, AdamWConfig(lr=3e-3, warmup_steps=5))
+        runs[name] = [float(step(params, state, {"tokens": torch.from_numpy(
+            data.batch(i)["tokens"]).to(dev)})[2]["loss"]) for i in range(TRAIN_SMOKE_STEPS)]
+    a, b = np.asarray(runs["card"]), np.asarray(runs["cpu"])
+    rel = float((np.abs(a - b) / np.abs(b)).max())
+    drop = float(a[:5].mean() - a[-5:].mean())
+    check(np.isfinite(a).all() and rel <= TRAIN_SMOKE_RTOL,
+          f"card and CPU losses differ by {rel} relative")
+    check(drop >= 0.1, f"the card's loss fell by {drop}, not 0.1")
+    print(f"train/card-vs-cpu: gemma-2b smoke config (f32), {TRAIN_SMOKE_STEPS} AdamW steps "
+          f"from the same weights: losses {a[0]:.6f} -> {a[-1]:.6f} on the card, "
+          f"{b[0]:.6f} -> {b[-1]:.6f} on the CPU, max relative difference {rel:.3e} "
+          f"(tolerance {TRAIN_SMOKE_RTOL}); last five average {drop:.4f} below the first five")
+
+
+def cli_kill_and_resume() -> None:
+    """The training CLI on the card, three subprocesses: uninterrupted,
+    killed at step 30, resumed; the step-59 parameters bit-equal."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
+    try:
+        def run(ckpt, extra, rc):
+            t = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--device", "cuda",
+                 *TRAIN_CLI, "--ckpt-dir", ckpt, *extra],
+                capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+            check(p.returncode == rc, f"train CLI {extra} exited {p.returncode}, not {rc}: "
+                  f"{p.stdout[-2000:]} {p.stderr[-4000:]}")
+            return p.stdout, time.perf_counter() - t
+
+        d1, d2 = os.path.join(tmp, "full"), os.path.join(tmp, "split")
+        # the uninterrupted and the killed run side by side: each is mostly
+        # process start-up, and each process is deterministic on its own
+        with ThreadPoolExecutor(2) as pool:
+            first = pool.submit(run, d1, [], 0)
+            out2, s2 = run(d2, ["--kill-at", "30"], 42)
+            out1, s1 = first.result()
+        from repro_torch.train import checkpoint as ck
+
+        check(ck.latest_step(d2) == 20, f"the killed run's latest step {ck.latest_step(d2)}")
+        check("simulating node failure at step 30" in out2, "the kill line")
+        out3, s3 = run(d2, ["--resume"], 0)
+        check("resumed from step 20" in out3, "resumed from step 20")
+        with np.load(os.path.join(d1, f"step_{59:010d}", "arrays.npz")) as a, \
+                np.load(os.path.join(d2, f"step_{59:010d}", "arrays.npz")) as b:
+            check(sorted(a.files) == sorted(b.files), "the two runs' checkpoint keys")
+            keys = [k for k in a.files if k.startswith("params/")]
+            check(all(np.array_equal(a[k], b[k]) for k in keys),
+                  "the resumed run's step-59 parameters != the uninterrupted run's")
+        last = [line for line in out1.splitlines() if line.startswith("step ")][-1]
+        print(f"train/cli: python -m repro_torch.launch.train --device cuda {' '.join(TRAIN_CLI)}:"
+              f" uninterrupted {s1:.3f} s ('{last}') beside the run killed at 30 (exit 42, "
+              f"latest step 20) {s2:.3f} s, then resumed from 20 {s3:.3f} s; the step-59 "
+              f"parameters ({len(keys)} leaves) equal bit for bit")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def two_tower_train(device):
+    """Two-tower at full width: one step through the kernel and the same step
+    with use_kernel=False from the same (initial) state, bit for bit, under
+    deterministic algorithms; then TT_TRAIN_STEPS AdamW steps through the
+    embedding_bag kernel (the main path, counted)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.kernels.embedding_bag import kernel as ebk
+    from repro_torch.launch.steps import build_recsys_step
+    from repro_torch.models import recsys
+    from repro_torch.models.common import tree_leaves
+
+    arch = get_arch("two-tower-retrieval")
+    full = arch.shape("train_batch").dims["batch"]
+    gen = torch.Generator(device=device).manual_seed(SEED + 47)
+    torch.cuda.reset_peak_memory_stats()
+    params = recsys.init_two_tower(gen, arch.config)
+    check(recsys.param_count(params) == RECSYS_PARAMS, "two-tower's parameter count")
+    step = build_recsys_step(arch, ShapeSpec("train_batch", "train", {"batch": TT_TRAIN_BATCH}),
+                             params, gen, device)
+
+    # the first step from the initial state through the kernel and the plain
+    # version (the moments start at 0, so only the parameters are saved)
+    leaves = tree_leaves(params)
+    moments = [step.opt_state.step, *tree_leaves(step.opt_state.mu),
+               *tree_leaves(step.opt_state.nu)]
+    t = time.perf_counter()
+    saved = [p.detach().to("cpu", copy=True) for p in leaves]
+    with deterministic():
+        (_, _, o1), s1 = timed(lambda: step.fn(step.batch))
+        got = [p.detach().to("cpu", copy=True) for p in leaves]
+        with torch.no_grad():
+            for p, h in zip(leaves, saved):
+                p.copy_(h)
+            for m in moments:
+                m.zero_()
+        before = ebk.launches
+        (_, _, o0), s0 = timed(lambda: step.fn(step.batch, use_kernel=False))
+        check(ebk.launches == before, "the plain step launched no kernel")
+    check(torch.equal(o1["loss"], o0["loss"]),
+          f"two-tower's loss through the kernel {float(o1['loss'])} != plain {float(o0['loss'])}")
+    check(all(torch.equal(p.detach(), h.to(device)) for p, h in zip(leaves, got)),
+          "two-tower's updated parameters through the kernel != plain")
+    print(f"train/two-tower: the first step through the kernel ({s1 * 1e3:.3f} ms) and the same "
+          f"step from the same state with use_kernel=False ({s0 * 1e3:.3f} ms), deterministic "
+          f"algorithms: loss {float(o1['loss']):.6f} and all {sum(p.numel() for p in leaves)} "
+          f"updated parameters equal bit for bit (parameters saved to and restored from the "
+          f"host; the comparison took {time.perf_counter() - t:.3f} s)")
+    del saved, got
+
+    # the main path: the counts from 0
+    ebk.launches = 0
+    losses, secs = [], []
+    for _ in range(TT_TRAIN_STEPS):
+        (_, _, out), s = timed(lambda: step.fn(step.batch))
+        losses.append(float(out["loss"]))
+        secs.append(s)
+    launches = ebk.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == 2 * TT_TRAIN_STEPS,
+          f"embedding_bag launches {launches} == 2 bags x {TT_TRAIN_STEPS} train steps")
+    check(all(np.isfinite(losses)), f"two-tower losses are finite: {losses}")
+    med = float(np.median(secs[1:])) * 1e3
+    ms_grad, ms_opt = split_step(recsys.two_tower_loss, params, step.opt_state, step.batch,
+                                 arch.config)
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=device)  # 256 MiB > L2
+    bag = time_embedding_bag("two-tower train user bag", params["user_table"],
+                             step.batch["user_feats"], flush)
+    del flush
+    print(f"train/two-tower: full width ({RECSYS_PARAMS} f32 parameters), train_batch "
+          f"{full} cut to {TT_TRAIN_BATCH}, AdamW, steps 2-{TT_TRAIN_STEPS + 1}: losses "
+          f"{' '.join(f'{x:.6f}' for x in losses)}; ms/step "
+          f"{' '.join(f'{s * 1e3:.3f}' for s in secs)} (median after the first {med:.3f}, host "
+          f"clock, synchronised); embedding_bag launches {launches} (2 a step); peak "
+          f"{peak / 1e9:.3f} GB allocated; one more step in halves: loss + gradients "
+          f"{ms_grad:.3f} ms, AdamW {ms_opt:.3f} ms ({ms_opt / (ms_grad + ms_opt):.4f})")
+    del params, step, leaves, moments
+    return launches, bag
+
+
+def recsys_train_others(device):
+    """SASRec, DIN and MIND at full published width, train_batch: two AdamW
+    steps each, the second timed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import RECSYS_INIT, build_recsys_step
+    from repro_torch.models import recsys
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 53)
+    for name in ("sasrec", "din", "mind"):
+        arch = get_arch(name)
+        params = RECSYS_INIT[name](gen, arch.config)
+        step = build_recsys_step(arch, arch.shape("train_batch"), params, gen, device)
+        (_, _, o1), s1 = timed(lambda: step.fn(step.batch))
+        (_, _, o2), s2 = timed(lambda: step.fn(step.batch))
+        losses = (float(o1["loss"]), float(o2["loss"]))
+        check(all(np.isfinite(losses)), f"{name}: train losses are finite: {losses}")
+        print(f"train/{name}: full width ({recsys.param_count(params)} parameters), train_batch "
+              f"{arch.shape('train_batch').dims['batch']}, AdamW: losses {losses[0]:.6f} "
+              f"{losses[1]:.6f}; ms/step {s2 * 1e3:.3f} (second step; first {s1 * 1e3:.3f}, "
+              f"host clock, synchronised)")
+        del params, step
+        torch.cuda.empty_cache()
+
+
+def phase_train(device):
+    """Training on the card: gemma-2b at full width, the card against the
+    CPU, the training CLI's kill and resume, and the recsys losses, two-tower
+    through the embedding_bag kernel."""
+    torch.cuda.empty_cache()
+    gemma = gemma_train(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke_against_cpu(device)
+    cli_kill_and_resume()
+    launches, bag = two_tower_train(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    recsys_train_others(device)
+    return dict(gemma, launches=launches, bag=bag)
+
+
+# -- phase 10: recsys serving, two-tower through the embedding_bag kernel -------
 
 
 def recsys_small_check(device) -> None:
@@ -2090,7 +2578,7 @@ def phase_recsys(device):
     return dict(launches=launches, row=row)
 
 
-# -- phase 10: kernels against their plain versions -----------------------------
+# -- phase 11: kernels against their plain versions -----------------------------
 
 
 def _words(rng, shape):
@@ -2635,6 +3123,9 @@ def main() -> int:
     from repro_torch.core.fast import VecLog, VecStats
     from repro_torch.kernels import _build
 
+    # cuBLAS's workspace for the deterministic comparisons (phase train), set
+    # before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     # the f32 products stay IEEE f32: the kernel's yardstick too
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2701,6 +3192,10 @@ def main() -> int:
           f"allocated through phase lm; {torch.cuda.memory_allocated() / 1e9:.3f} GB after "
           f"releasing the LM")
     torch.cuda.reset_peak_memory_stats()
+    train = phase("train", phase_train, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     rec = phase("recsys", phase_recsys, device)
     print(f"memory: peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated in phase "
           f"recsys")
@@ -2747,7 +3242,8 @@ def main() -> int:
     r = rec["row"]  # the serve_bulk user bag
     kernels.append(dict(
         name="embedding_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
-        replaces="src/repro/kernels/embedding_bag/kernel.py:37", launches=rec["launches"],
+        replaces="src/repro/kernels/embedding_bag/kernel.py:37",
+        launches=rec["launches"] + train["launches"],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
     ))

@@ -24,10 +24,14 @@ nothing of it (and nothing of JAX).  Layout mirrors ``repro``:
   its hand-written CUDA kernel (``csrc/embedding_bag.cu``), beside its
   plain PyTorch version;
 * :mod:`repro_torch.models`, :mod:`repro_torch.configs` -- the dense LM
-  (forward, prefill, KV-cache decode), the recsys models' serving path
-  (two-tower, SASRec, DIN, MIND) and their architectures;
-* :mod:`repro_torch.launch.serve` -- the serving CLI's LM back end;
-* :mod:`repro_torch.launch.steps` -- the recsys serve and retrieval steps;
+  (forward, prefill, KV-cache decode, ``loss_fn``), the recsys models and
+  losses (two-tower, SASRec, DIN, MIND) and their architectures;
+* :mod:`repro_torch.train` -- AdamW and Adafactor, the synthetic token
+  stream and the checkpoints;
+* :mod:`repro_torch.launch.serve`, :mod:`repro_torch.launch.train` -- the
+  serving CLI (with its LM back end) and the training CLI;
+* :mod:`repro_torch.launch.steps` -- the LM's train, prefill and decode
+  steps, the recsys train, serve and retrieval steps;
 * :mod:`repro_torch.serving` -- the device cache and the broker.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

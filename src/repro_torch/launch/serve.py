@@ -28,6 +28,9 @@ id first among equal logits (``jax.lax.top_k``'s order).  The reference
 computes the whole ``(n, 8, V)`` logits with ``forward`` and keeps the last
 position; the port unembeds only the last position, as ``prefill`` does:
 the same ids, without the ``(n, 8, 256000)`` f32 logits at full width.
+On the card the CLI's back end replays CUDA graphs of that computation,
+one per power of two of rows up to ``--batch`` (:func:`lm_backend`'s
+``graph_max``), where the reference calls its ``jax.jit``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import dataclasses
 import math
 import sys
 import tempfile
+import threading
 import time
 from typing import Callable
 
@@ -92,14 +96,63 @@ def model_scores(params: tf.ParamTree, tokens: torch.Tensor, cfg: tf.Transformer
     return top_k_ids(tf._unembed(params, x[:, -1], cfg), k).to(torch.int32)
 
 
+def _graph_rows(n: int) -> int:
+    """The rows of the captured graph a call of ``n`` ids replays: the
+    next power of two."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _capture_scores(params: tf.ParamTree, cfg: tf.TransformerConfig, k: int,
+                    dev: torch.device, graph_max: int):
+    """``{rows: (graph, tokens, ids)}``: ``model_scores`` captured as a CUDA
+    graph for every power of two of rows up to ``_graph_rows(graph_max)``,
+    each with its own input and output buffers."""
+    graphs = {}
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    rows = 1
+    while rows <= _graph_rows(graph_max):
+        tokens = torch.zeros((rows, QUERY_TOKENS), dtype=torch.int64, device=dev)
+        with torch.cuda.stream(side):
+            # the warm-up call sets up cuBLAS and the allocator off the graph
+            model_scores(params, tokens, cfg, k)
+        side.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            ids = model_scores(params, tokens, cfg, k)
+        graphs[rows] = (graph, tokens, ids)
+        rows *= 2
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return graphs
+
+
 def lm_backend(params: tf.ParamTree, cfg: tf.TransformerConfig, value_dim: int = 8,
-               device="cuda") -> Callable[[np.ndarray], np.ndarray]:
-    """``backend(qids) -> (n, value_dim) int32`` doc ids, as the CLI's."""
+               device="cuda", graph_max: int = 0) -> Callable[[np.ndarray], np.ndarray]:
+    """``backend(qids) -> (n, value_dim) int32`` doc ids, as the CLI's.
+
+    With ``graph_max`` on a CUDA device, a call of 1 to ``graph_max`` ids
+    replays a CUDA graph of ``model_scores`` captured here for the next
+    power of two of rows: one launch where the eager forward issues ~150
+    small kernels, each at the host's dispatch cost.  It stands where the
+    reference jit-compiles ``model_scores``.  Each
+    row's window is scored alone, so the rows past ``n`` change nothing.
+    Larger calls, and every call on the CPU, run eagerly.  Calls from
+    several threads take turns on the graphs."""
     dev = resolve_device(device)
+    graphs = (_capture_scores(params, cfg, value_dim, dev, graph_max)
+              if graph_max > 0 and dev.type == "cuda" else {})
+    lock = threading.Lock()
 
     def backend(qids: np.ndarray) -> np.ndarray:
-        tokens = torch.from_numpy(query_tokens(qids, cfg.vocab_size)).to(dev)
-        return model_scores(params, tokens, cfg, value_dim).cpu().numpy()
+        tokens = torch.from_numpy(query_tokens(qids, cfg.vocab_size))
+        n = len(tokens)
+        if 0 < n <= graph_max and graphs:
+            graph, inp, ids = graphs[_graph_rows(n)]
+            with lock:
+                inp[:n].copy_(tokens)
+                graph.replay()
+                return ids[:n].cpu().numpy()
+        return model_scores(params, tokens.to(dev), cfg, value_dim).cpu().numpy()
 
     return backend
 
@@ -408,7 +461,7 @@ def main(argv=None) -> int:
     # random weights from a seeded generator on the serving device; the
     # back end answers each miss with the LM's top-k ids (lm_backend)
     params = tf.init_params(torch.Generator(device=dev).manual_seed(0), mcfg)
-    backend = lm_backend(params, mcfg, args.value_dim, device=dev)
+    backend = lm_backend(params, mcfg, args.value_dim, device=dev, graph_max=args.batch)
 
     test = log.test_keys
     with Cluster.from_spec(

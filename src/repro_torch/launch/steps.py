@@ -1,31 +1,39 @@
-"""Step builders of the recsys family: the serving half of
-``repro.launch.steps`` (``_recsys_fns``, ``build_recsys_step``).
+"""Step builders of the LM and recsys families: the port of
+``repro.launch.steps`` (``build_lm_step``, ``_lm_optimizer``,
+``_recsys_fns``, ``build_recsys_step``) on one device.
 
-For each recsys architecture, the serve function (a batch of users or
-histories against one target each) and the retrieval function (one query
-against ``n_candidates`` items), with makers of seeded batches of real ids
-at a shape's sizes.  The reference's makers build ``ShapeDtypeStruct``s for
-its dry-run; the port's draw data from a ``torch.Generator``:
+:func:`build_lm_step` gives the LM's ``train`` (loss, gradients, AdamW or
+Adafactor as ``_lm_optimizer`` picks), ``prefill`` and ``decode`` steps with
+the reference's ``model_flops``.  For each recsys architecture, the
+training loss, the serve function (a batch of users or histories against
+one target each) and the retrieval function (one query against
+``n_candidates`` items), with makers of seeded batches of real ids at a
+shape's sizes.  The reference's makers build ``ShapeDtypeStruct``s for its
+dry-run; the port's draw data from a ``torch.Generator``:
 
 * ids are uniform over the table they index;
 * each multi-hot bag (two-tower's user and item features) has a length
   uniform in ``1 .. L``, its ids first and -1 pads after them;
-* histories (SASRec, DIN, MIND) are full.
+* histories (SASRec, DIN, MIND) are full; DIN's labels are 0 or 1.
 
-No mesh and no sharding (they wait with ``shardings.py`` and ``mesh.py``),
-and no training step: ROADMAP.md, Queue 1 item 12.
+A train step updates the parameters and the optimizer state in place
+(``repro_torch.train.optim``) and returns them with ``{"loss": loss}``.
+No mesh and no sharding: they wait with ``shardings.py`` and ``mesh.py``
+(ROADMAP.md, Queue 1 item 12).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from ..configs.registry import Arch, ShapeSpec
 from ..core.device import resolve_device
-from ..models import recsys
+from ..models import recsys, transformer
+from ..models.common import tree_leaves, tree_map
+from ..train import optim
 
 #: two-tower's multi-hot bag lengths: user features and item features
 _USER_BAG = 8
@@ -36,9 +44,124 @@ Batch = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass
 class RecsysStep:
-    #: ``fn(batch)`` -> scores; two-tower's also takes ``use_kernel``
-    fn: Callable[..., torch.Tensor]
+    #: ``fn(batch)`` -> scores, or for ``train`` -> ``(params, opt_state,
+    #: {"loss": loss})``, updating both in place; two-tower's also takes
+    #: ``use_kernel``
+    fn: Callable[..., Any]
     batch: Batch
+    #: analytic model flops per call, the reference's
+    model_flops: float = 0.0
+    #: the AdamW state a ``train`` step updates (None otherwise)
+    opt_state: Optional[optim.OptState] = None
+
+
+def value_and_grad(loss_fn: Callable[..., torch.Tensor]):
+    """``jax.value_and_grad`` over a tree of tensors: ``fn(params, *args,
+    **kw)`` -> ``(loss, grads)``, the loss detached and the gradients a tree
+    of ``params``' structure (zeros for a leaf the loss does not use).
+    Turns on ``requires_grad`` of every leaf of ``params``."""
+    def fn(params, *args, **kw):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(params, *args, **kw)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        it = iter(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
+        return loss.detach(), tree_map(lambda _: next(it), params)
+
+    return fn
+
+
+def _train_step(loss_fn, cfg, update, opt_cfg):
+    """``step(params, opt_state, batch, **kw)``: loss, gradients, then
+    ``update(params, grads, opt_state, opt_cfg)``, the reference's train
+    step."""
+    vg = value_and_grad(loss_fn)
+
+    def step(params, opt_state, batch, **kw):
+        loss, grads = vg(params, batch, cfg, **kw)
+        params, opt_state = update(params, grads, opt_state, opt_cfg)
+        return params, opt_state, {"loss": loss}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LMStep:
+    name: str
+    #: train: ``fn(params, opt_state, batch)`` -> ``(params, opt_state,
+    #: {"loss": loss})``; prefill: ``fn(params, tokens)`` -> ``(logits,
+    #: cache)``; decode: ``fn(params, cache, tokens)`` -> ``(logits, cache)``
+    fn: Callable[..., Any]
+    cfg: transformer.TransformerConfig
+    #: (global_batch, seq_len) of the step's tokens (decode: one token
+    #: against a seq_len cache)
+    batch: int
+    seq_len: int
+    #: analytic model flops per call (6*N*D training / 2*N*D inference)
+    model_flops: float
+    #: "adamw" or "adafactor" (train)
+    optimizer: str = "adamw"
+
+    def init_opt_state(self, params):
+        if self.optimizer == "adafactor":
+            return optim.init_adafactor_state(params)
+        return optim.init_opt_state(params)
+
+
+def _lm_optimizer(arch: Arch) -> str:
+    # 20B+ models keep only factored stats (see train/optim.py); smaller
+    # dense models afford full AdamW moments.
+    if arch.config.moe is not None or arch.config.param_count() > 2e10:
+        return "adafactor"
+    return "adamw"
+
+
+def build_lm_step(arch: Arch, shape: ShapeSpec, smoke: bool = False) -> LMStep:
+    """The ``train``, ``prefill`` or ``decode`` step of an LM ``arch`` at
+    ``shape`` (seq_len <= 64 and batch <= 4 with ``smoke``, as the
+    reference's).  The reference's ``opts`` (perf levers, MoE placement)
+    wait with MoE and the mesh."""
+    if arch.family != "lm":
+        raise ValueError(f"{arch.name} is not an LM architecture")
+    cfg: transformer.TransformerConfig = arch.smoke_config if smoke else arch.config
+    seq, gb = shape.dims["seq_len"], shape.dims["global_batch"]
+    if smoke:
+        seq, gb = min(seq, 64), min(gb, 4)
+    optimizer = _lm_optimizer(arch)
+    name = f"{arch.name}:{shape.name}:{shape.kind}"
+    n_tokens = gb * seq
+    if shape.kind == "train":
+        if optimizer == "adafactor":
+            fn = _train_step(transformer.loss_fn, cfg, optim.adafactor_updates,
+                             optim.AdafactorConfig())
+        else:
+            fn = _train_step(transformer.loss_fn, cfg, optim.apply_updates, optim.AdamWConfig())
+        return LMStep(name, fn, cfg, gb, seq, 6.0 * cfg.active_param_count() * n_tokens,
+                      optimizer)
+    if shape.kind == "prefill":
+        def prefill(params, tokens):
+            return transformer.prefill(params, tokens, cfg)
+
+        return LMStep(name, prefill, cfg, gb, seq, 2.0 * cfg.active_param_count() * n_tokens,
+                      optimizer)
+    if shape.kind == "decode":
+        def decode(params, cache, tokens):
+            return transformer.decode_step(params, cache, tokens, cfg)
+
+        return LMStep(name, decode, cfg, gb, seq, 2.0 * cfg.active_param_count() * gb,
+                      optimizer)
+    raise ValueError(f"unknown step kind {shape.kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# RecSys
+# ---------------------------------------------------------------------------
 
 
 def _ids(gen: torch.Generator, high: int, shape) -> torch.Tensor:
@@ -138,6 +261,40 @@ def recsys_fns(arch: Arch, cfg):
     raise ValueError(name)
 
 
+def recsys_train_fns(arch: Arch, cfg):
+    """``(loss_fn, make_train)``: the reference's training loss
+    ``loss_fn(params, batch, cfg)`` and ``make_train(b, generator)``, which
+    draws a training batch on the generator's device."""
+    name = arch.name
+    if name == "two-tower-retrieval":
+        def make_train(b, gen):
+            return {"user_feats": _bags(gen, cfg.n_users, b, _USER_BAG),
+                    "item_feats": _bags(gen, cfg.n_items, b, _ITEM_BAG)}
+
+        return recsys.two_tower_loss, make_train
+    if name == "sasrec":
+        def make_train(b, gen):
+            return {"seq": _ids(gen, cfg.n_items, (b, cfg.seq_len)),
+                    "pos_item": _ids(gen, cfg.n_items, (b,)),
+                    "neg_item": _ids(gen, cfg.n_items, (b,))}
+
+        return recsys.sasrec_loss, make_train
+    if name == "din":
+        def make_train(b, gen):
+            return {"hist": _ids(gen, cfg.n_items, (b, cfg.seq_len)),
+                    "target": _ids(gen, cfg.n_items, (b,)),
+                    "label": _ids(gen, 2, (b,)).float()}
+
+        return recsys.din_loss, make_train
+    if name == "mind":
+        def make_train(b, gen):
+            return {"seq": _ids(gen, cfg.n_items, (b, cfg.seq_len)),
+                    "candidates": _ids(gen, cfg.n_items, (b, 16))}
+
+        return recsys.mind_loss, make_train
+    raise ValueError(name)
+
+
 RECSYS_INIT = {
     "two-tower-retrieval": recsys.init_two_tower,
     "sasrec": recsys.init_sasrec,
@@ -148,23 +305,32 @@ RECSYS_INIT = {
 
 def build_recsys_step(arch: Arch, shape: ShapeSpec, params, generator: torch.Generator,
                       device="cuda", smoke: bool = False) -> RecsysStep:
-    """The ``serve`` or ``retrieval`` step of ``arch`` at ``shape`` (batch 64
-    and 4096 candidates with ``smoke``, as the reference's smoke runs), bound
-    to ``params``, with a batch drawn from ``generator`` and moved to
-    ``device``."""
+    """The ``train``, ``serve`` or ``retrieval`` step of ``arch`` at
+    ``shape`` (batch 64 and 4096 candidates with ``smoke``, as the
+    reference's smoke runs), bound to ``params`` (and for ``train`` to a
+    fresh AdamW state, ``AdamWConfig()``), with a batch drawn from
+    ``generator`` and moved to ``device``."""
     dev = resolve_device(device)
     if arch.family != "recsys":
         raise ValueError(f"{arch.name} is not a recsys architecture")
-    if shape.kind == "train":
-        raise NotImplementedError(
-            "recsys training is not ported yet (ROADMAP.md, Queue 1 item 12)")
     cfg = arch.smoke_config if smoke else arch.config
     serve_fn, retr_fn, make_serve, make_retr = recsys_fns(arch, cfg)
+    emb = cfg.embed_dim
+    if shape.kind == "train":
+        loss_fn, make_train = recsys_train_fns(arch, cfg)
+        b = 64 if smoke else shape.dims["batch"]
+        batch = {k: t.to(dev) for k, t in make_train(b, generator).items()}
+        opt_state = optim.init_opt_state(params)
+        step = _train_step(loss_fn, cfg, optim.apply_updates, optim.AdamWConfig())
+        return RecsysStep(functools.partial(step, params, opt_state), batch,
+                          model_flops=6.0 * b * (2 * emb * 1024), opt_state=opt_state)
     if shape.kind == "serve":
-        fn, batch = serve_fn, make_serve(64 if smoke else shape.dims["batch"], generator)
+        b = 64 if smoke else shape.dims["batch"]
+        fn, batch, flops = serve_fn, make_serve(b, generator), 2.0 * b * (2 * emb * 1024)
     elif shape.kind == "retrieval":
-        fn, batch = retr_fn, make_retr(4096 if smoke else shape.dims["n_candidates"], generator)
+        c = 4096 if smoke else shape.dims["n_candidates"]
+        fn, batch, flops = retr_fn, make_retr(c, generator), 2.0 * c * emb
     else:
         raise ValueError(f"unknown step kind {shape.kind!r}")
     batch = {k: t.to(dev) for k, t in batch.items()}
-    return RecsysStep(functools.partial(fn, params), batch)
+    return RecsysStep(functools.partial(fn, params), batch, model_flops=flops)

@@ -2,17 +2,20 @@
 
 The pieces the LM needs, with the reference's numerics: Gemma-style
 RMSNorm (``1 + scale``, f32 accumulation), the tanh-approximate GELU, the
-logit softcap, and half-split (not interleaved) rotary embeddings with f32
-angles.  Initialisation draws a truncated normal from an explicit
+logit softcap, half-split (not interleaved) rotary embeddings with f32
+angles, the f32 token cross-entropy and the global norm of a tree of
+gradients.  Initialisation draws a truncated normal from an explicit
 ``torch.Generator``: the numbers differ from ``jax.random``'s, so the tests
-carry the JAX weights across instead (``transformer.params_from_numpy``).
+carry the JAX weights across instead (:func:`tensor_from_numpy`, under
+``transformer.params_from_numpy`` and ``recsys.params_from_numpy``).
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -28,6 +31,15 @@ def truncated_normal(
     x.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=generator)
     x.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(stddev)
     return x.to(dtype)
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """A tensor on ``device`` with the bits of the array ``np.array`` makes
+    of ``a`` (ml_dtypes' bfloat16 included: the same bits as torch's)."""
+    a = np.array(a)  # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -76,3 +88,59 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0
     sin, cos = torch.sin(angles), torch.cos(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses / metrics
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Mean token cross-entropy, f32 log-softmax."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp(min=1)
+    return nll.mean()
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a tree of dicts, lists, tuples and modules with a
+    ``tree()`` (a transformer's ``ParamTree``) in the reference's order:
+    dict keys sorted, sequences in order, depth first; ``None`` holds none."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.nn.Module):
+        tree = tree.tree()
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [l for v in tree for l in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable[..., Any], tree, *rest):
+    """``tree``'s structure (a module as its ``tree()``) with ``fn`` of each
+    leaf and the leaves at the same place in ``rest``, called in
+    :func:`tree_leaves`' order."""
+    if isinstance(tree, torch.nn.Module):
+        tree = tree.tree()
+    rest = [r.tree() if isinstance(r, torch.nn.Module) else r for r in rest]
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The f32 2-norm of every leaf together, a 0-d tensor on the leaves'
+    device: the leaves' sums of squares added in tree order."""
+    leaves = tree_leaves(tree)
+    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in leaves))

@@ -1,4 +1,4 @@
-"""RecSys architectures: the port of ``repro.models.recsys`` (serving).
+"""RecSys architectures: the port of ``repro.models.recsys``.
 
 Two-tower retrieval, SASRec, DIN and MIND with the reference's numerics.
 The shared hot path is the sparse EmbeddingBag: :func:`embedding_bag`
@@ -7,13 +7,16 @@ sends ``sum`` and ``mean`` bags through
 on the card (the TPU package keeps its Pallas kernel off the model's path;
 the port routes the model's bags through its kernel, with the same
 results).  ``max`` stays plain PyTorch: no kernel computes it in either
-package, and no served model uses it.
+package, and no served model uses it.  The op is differentiable with
+respect to the table (the kernel forward, PyTorch's ``index_add_``
+backward), so two-tower trains through the kernel.
 
 Parameters are trees of dicts and lists of tensors, named as the
 reference's.  Initialisation draws from an explicit ``torch.Generator`` on
 its device; the tests carry the JAX weights across instead
-(:func:`params_from_numpy`).  The losses wait for training (ROADMAP.md,
-Queue 1 item 12).
+(:func:`params_from_numpy`).  Each architecture has the reference's
+training loss: :func:`two_tower_loss` (in-batch softmax), :func:`sasrec_loss`,
+:func:`din_loss` and :func:`mind_loss`.
 """
 from __future__ import annotations
 
@@ -21,11 +24,11 @@ import dataclasses
 import math
 from typing import Any, Dict, Tuple
 
-import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..kernels.embedding_bag import embedding_bag_op
-from .common import truncated_normal
+from .common import tensor_from_numpy, truncated_normal
 
 Params = Any
 
@@ -85,10 +88,7 @@ def params_from_numpy(tree: Any, device="cuda") -> Params:
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
-    a = np.array(tree)  # a writable copy
-    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits as torch's
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
+    return tensor_from_numpy(tree, device)
 
 
 def param_count(params: Params) -> int:
@@ -141,6 +141,17 @@ def two_tower_item(params: Params, item_feats: torch.Tensor, cfg: TwoTowerConfig
                    use_kernel: bool = True) -> torch.Tensor:
     i = embedding_bag(params["item_table"], item_feats, "mean", use_kernel)
     return _normalise(mlp(params["item_tower"], i))
+
+
+def two_tower_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: TwoTowerConfig,
+                   use_kernel: bool = True) -> torch.Tensor:
+    """Sampled softmax with in-batch negatives (the standard recipe)."""
+    u = two_tower_user(params, batch["user_feats"], cfg, use_kernel)  # (B, d)
+    i = two_tower_item(params, batch["item_feats"], cfg, use_kernel)  # (B, d)
+    logits = (u @ i.T).float() / 0.05  # (B, B), temperature
+    labels = torch.arange(u.shape[0], device=u.device)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(1, labels[:, None]).mean()
 
 
 def two_tower_score_candidates(
@@ -208,6 +219,15 @@ def sasrec_encode(params: Params, seq: torch.Tensor, cfg: SASRecConfig) -> torch
     return x[:, -1]
 
 
+def sasrec_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: SASRecConfig) -> torch.Tensor:
+    state = sasrec_encode(params, batch["seq"], cfg)  # (B, d)
+    pos = params["item_table"][batch["pos_item"]]
+    neg = params["item_table"][batch["neg_item"]]
+    pos_s = (state * pos).sum(-1).float()
+    neg_s = (state * neg).sum(-1).float()
+    return -(F.logsigmoid(pos_s) + F.logsigmoid(-neg_s)).mean()
+
+
 def sasrec_score(params: Params, batch: Dict[str, torch.Tensor], cfg: SASRecConfig) -> torch.Tensor:
     state = sasrec_encode(params, batch["seq"], cfg)
     items = params["item_table"][batch["candidates"]]  # (B, C, d)
@@ -254,6 +274,12 @@ def din_forward(params: Params, batch: Dict[str, torch.Tensor], cfg: DINConfig) 
     interest = torch.einsum("bl,bld->bd", w, hist)
     x = torch.cat([interest, target], dim=-1)
     return mlp(params["mlp"], x)[..., 0]
+
+
+def din_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: DINConfig) -> torch.Tensor:
+    logit = din_forward(params, batch, cfg).float()
+    y = batch["label"].float()
+    return torch.mean(logit.clamp(min=0) - logit * y + torch.log1p(torch.exp(-logit.abs())))
 
 
 # ---------------------------------------------------------------------------
@@ -311,3 +337,9 @@ def mind_score(params: Params, batch: Dict[str, torch.Tensor], cfg: MINDConfig) 
     sim = torch.einsum("bkd,bcd->bkc", interests, items).float()
     p = torch.softmax(params["label_attn_pow"] * sim, dim=1)
     return (p * sim).sum(dim=1)  # (B, C)
+
+
+def mind_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: MINDConfig) -> torch.Tensor:
+    scores = mind_score(params, batch, cfg)  # (B, C) candidate 0 is positive
+    logp = torch.log_softmax(scores, dim=-1)
+    return -logp[:, 0].mean()

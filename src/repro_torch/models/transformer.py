@@ -1,4 +1,4 @@
-"""Decoder-only transformer for LM serving: the port of
+"""Decoder-only transformer for LM serving and training: the port of
 ``repro.models.transformer`` (dense layers).
 
 One implementation, config-switched as in the reference: GQA / MQA
@@ -13,16 +13,28 @@ reference's layer-stacked tensors under its tree's names
 :func:`params_from_numpy` carries the JAX weights across unchanged.  A
 Python loop over the layers takes the place of ``lax.scan``.
 
-Serving only: :func:`forward`, :func:`prefill`, :func:`init_cache` and
+Serving: :func:`forward`, :func:`prefill`, :func:`init_cache` and
 :func:`decode_step`.  Decode attention runs through
 :func:`repro_torch.kernels.decode_attention.decode_attention_op` (the CUDA
 kernel on the card) on layer i's ``(B, S, Hkv, d)`` cache slice; the cache
 is updated in place, and its fill level ``len`` is a 0-d int32 tensor on
-the device, so a decode step makes no host sync.  Not ported yet, and
-raising ``NotImplementedError``: MoE layers, the sequence-parallel residual
-(``act_seq_axis``), the ``decode_window_slice`` lever, and training
-(``loss_fn``, gradients, which ``remat`` serves).  ``kv_quant`` is a field
-the reference declares and never reads; the port does the same.
+the device, so a decode step makes no host sync.
+
+Training: :func:`loss_fn` is ``forward`` then the shifted token
+cross-entropy, differentiable with respect to every parameter.  Each
+stacked ``(L, ...)`` parameter is unbound into its L layers once per
+forward, so the layers' gradients are stacked back in one copy.  With
+``cfg.remat`` and gradients enabled each layer runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
+in the backward pass, as the reference's ``jax.checkpoint(body,
+policy=nothing_saveable)``.  Attention in training is the plain chunked
+:func:`_attend` (f32 scores and weights), as in the reference, where it is
+plain XLA: no Pallas kernel computes it.
+
+Not ported yet, and raising ``NotImplementedError``: MoE layers, the
+sequence-parallel residual (``act_seq_axis``) and the
+``decode_window_slice`` lever.  ``kv_quant`` is a field the reference
+declares and never reads; the port does the same.
 """
 from __future__ import annotations
 
@@ -33,9 +45,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attention import decode_attention_op
-from .common import ACTIVATIONS, apply_rope, dense, rmsnorm, softcap, truncated_normal
+from .common import (ACTIVATIONS, apply_rope, cross_entropy, dense, rmsnorm, softcap,
+                     tensor_from_numpy, truncated_normal)
 
 NEG_INF = -1e30
 
@@ -118,6 +132,19 @@ class TransformerConfig:
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + embed
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        attn = d * self.head_dim * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * self.head_dim * d
+        ff = self.moe.top_k * (3 * d * self.moe.d_ff) + d * self.moe.n_experts
+        if self.moe.dense_residual_ff:
+            ff += 3 * d * self.moe.dense_residual_ff
+        per_layer = attn + ff + 2 * d
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + embed
+
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -126,7 +153,9 @@ class TransformerConfig:
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module, indexed like the reference's
-    pytree: ``params["layers"]["mlp"]["wi"]``."""
+    pytree: ``params["layers"]["mlp"]["wi"]``.  The parameters are built
+    without gradients (serving); training turns them on
+    (``params.requires_grad_()``)."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -140,19 +169,18 @@ class ParamTree(nn.Module):
         return getattr(self, name)
 
     def tree(self) -> Dict[str, Any]:
-        """The tensors as a nested dict."""
-        out: Dict[str, Any] = {n: p.data for n, p in self._parameters.items()}
+        """The parameters themselves as a nested dict (gradients reach
+        them through what is computed from them)."""
+        out: Dict[str, Any] = dict(self._parameters)
         out.update({n: m.tree() for n, m in self._modules.items()})
         return out
 
 
-def _check_serving(params: ParamTree, cfg: TransformerConfig) -> None:
+def _check_supported(cfg: TransformerConfig) -> None:
     if cfg.moe is not None:
         raise _not_ported("MoE (_moe_ffn, _moe_local, set_moe_mesh)")
     if cfg.act_seq_axis is not None:
         raise _not_ported("the sequence-parallel residual (_constrain_residual)")
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
-        raise _not_ported("training (loss_fn, gradients, remat)")
 
 
 def init_params(generator: torch.Generator, cfg: TransformerConfig) -> ParamTree:
@@ -209,29 +237,31 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig) -> ParamTree
     return ParamTree(tree)
 
 
-def _tensor_from_numpy(a, device) -> torch.Tensor:
-    a = np.array(a)  # a writable copy
-    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits as torch's
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
-
-
 def params_from_numpy(tree: Dict[str, Any], device="cuda") -> ParamTree:
     """The port's parameters from the reference's ``init_params`` pytree as
     numpy arrays (``jax.tree.map(np.asarray, params)``), bit for bit."""
     def conv(t):
-        return {k: conv(v) if isinstance(v, dict) else _tensor_from_numpy(v, device)
+        return {k: conv(v) if isinstance(v, dict) else tensor_from_numpy(v, device)
                 for k, v in t.items()}
 
     return ParamTree(conv(tree))
 
 
-def _layer(params: ParamTree, i: int) -> Dict[str, Any]:
-    """Layer i's slice of the stacked layer tree, as nested dicts."""
-    def sl(t):
-        return {k: sl(v) if isinstance(v, dict) else v[i] for k, v in t.items()}
+def _layers(params: ParamTree, n_layers: int):
+    """Each layer's slice of the stacked layer tree, as nested dicts: every
+    stacked parameter unbound once, so a backward pass stacks its layers'
+    gradients in one copy (indexing it per layer would add a zero-padded
+    full-size gradient per layer)."""
+    def unbound(t):
+        if isinstance(t, dict):
+            return {k: unbound(v) for k, v in t.items()}
+        return t.unbind(0)
 
-    return sl(params["layers"].tree())
+    def layer(t, i):
+        return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in t.items()}
+
+    stacked = unbound(params["layers"].tree())
+    return [layer(stacked, i) for i in range(n_layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -394,13 +424,22 @@ def _unembed(params: ParamTree, x: torch.Tensor, cfg: TransformerConfig) -> torc
 
 
 def hidden(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    """The final-normed residual stream (B, S, D) of ``tokens`` (B, S)."""
-    _check_serving(params, cfg)
+    """The final-normed residual stream (B, S, D) of ``tokens`` (B, S).
+    With ``cfg.remat``, when a gradient is being taken (gradients enabled,
+    parameters that require them), each layer is checkpointed: its
+    activations are recomputed in the backward pass."""
+    _check_supported(cfg)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)
     loc = cfg.layer_is_local()
-    for i in range(cfg.n_layers):
-        x, _, _ = layer_forward(_layer(params, i), x, cfg, positions, bool(loc[i]))
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in params.parameters())
+    for i, layer in enumerate(_layers(params, cfg.n_layers)):
+        if remat:
+            x, _, _ = checkpoint(layer_forward, layer, x, cfg, positions, bool(loc[i]),
+                                 use_reentrant=False)
+        else:
+            x, _, _ = layer_forward(layer, x, cfg, positions, bool(loc[i]))
     return rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps)
 
 
@@ -411,8 +450,11 @@ def forward(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig):
     return _unembed(params, x, cfg), torch.zeros((), device=x.device)
 
 
-def loss_fn(params, batch, cfg):
-    raise _not_ported("training (loss_fn)")
+def loss_fn(params: ParamTree, batch: Dict[str, torch.Tensor], cfg: TransformerConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S), a 0-d
+    f32 tensor (no MoE, so no router aux term)."""
+    logits, _ = forward(params, batch["tokens"], cfg)
+    return cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
 
 
 # ---------------------------------------------------------------------------
@@ -440,14 +482,14 @@ def decode_step(
     ``(logits (B, V) f32, cache)``.  The returned cache holds the same K/V
     tensors, updated in place, and a new ``len`` = ``len + 1``.
     ``use_kernel=False`` runs the plain decode attention (a comparison)."""
-    _check_serving(params, cfg)
+    _check_supported(cfg)
     cur = cache["len"]
     x = _embed(params, tokens, cfg)
     positions = cur.reshape(1)
     loc = cfg.layer_is_local()
-    for i in range(cfg.n_layers):
+    for i, layer in enumerate(_layers(params, cfg.n_layers)):
         x, _, _ = layer_forward(
-            _layer(params, i), x, cfg, positions, bool(loc[i]), k_cache=cache["k"][i],
+            layer, x, cfg, positions, bool(loc[i]), k_cache=cache["k"][i],
             v_cache=cache["v"][i], cache_len=cur, use_kernel=use_kernel,
         )
     x = rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps)
@@ -463,15 +505,14 @@ def prefill(
 ):
     """Process a full prompt, building the KV cache: ``(logits of the last
     position (B, V) f32, cache)`` with ``max_len`` slots (default S)."""
-    _check_serving(params, cfg)
+    _check_supported(cfg)
     b, s = tokens.shape
     max_len = max_len or s
     x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=x.device)
     cache = init_cache(cfg, b, max_len, device=x.device)
     loc = cfg.layer_is_local()
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
+    for i, layer in enumerate(_layers(params, cfg.n_layers)):
         h = rmsnorm(layer["pre_attn_norm"]["scale"], x, cfg.norm_eps)
         q, k, v = _qkv(layer, h, cfg, positions)
         x = _finish(layer, x, _attend(q, k, v, cfg, positions, bool(loc[i])), cfg)

@@ -3,9 +3,11 @@
 A copy of ``repro.train.checkpoint`` in the same on-disk format, so a
 checkpoint written by either package restores in the other:
 
-* every leaf of a nested tree (dicts, lists, tuples; ``None`` is an empty
-  subtree) is saved under a path key -- dict keys in sorted order, list
-  and tuple indices, joined by ``/`` -- the names and the order
+* every leaf of a nested tree (dicts, lists, tuples, named tuples;
+  ``None`` is an empty subtree) is saved under a path key -- dict keys in
+  sorted order, list and tuple indices, a named tuple's fields in their
+  order as ``.field`` (an ``OptState``'s ``.step``, ``.mu``, ``.nu``),
+  joined by ``/`` -- the names and the order
   ``jax.tree_util.tree_flatten_with_path`` gives the reference, without
   JAX;
 * leaves are saved as numpy arrays (a tensor leaf is copied to the host
@@ -35,11 +37,14 @@ import numpy as np
 
 def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
     """``(path key, leaf)`` pairs in the reference's order: dict keys
-    sorted, sequences by index, depth first; ``None`` holds no leaf."""
+    sorted, named-tuple fields in order, sequences by index, depth first;
+    ``None`` holds no leaf."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif hasattr(tree, "_fields"):  # a named tuple: JAX's GetAttrKey, ".name"
+        items = [(f".{f}", getattr(tree, f)) for f in tree._fields]
     elif isinstance(tree, (list, tuple)):
         items = [(str(i), v) for i, v in enumerate(tree)]
     else:
@@ -57,6 +62,8 @@ def _unflatten(tree, leaves):
         return None
     if isinstance(tree, dict):
         return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[_unflatten(v, leaves) for v in tree])
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten(v, leaves) for v in tree)
     return next(leaves)

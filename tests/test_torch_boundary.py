@@ -37,6 +37,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.core.rd_offline, repro_torch.core.torch_sim, repro_torch.core.stats\n"
         "import repro_torch.core.policies, repro_torch.core.build, repro_torch.core.simulate\n"
         "import repro_torch.core.belady, repro_torch.querylog.parse\n"
+        "import repro_torch.train.optim, repro_torch.train.data, repro_torch.launch.train\n"
+        "from repro_torch.train import AdamWConfig, SyntheticLM, apply_updates\n"
+        "from repro_torch.launch.steps import build_lm_step, value_and_grad\n"
         "from repro_torch.launch.serve import main\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

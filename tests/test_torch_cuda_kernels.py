@@ -31,7 +31,9 @@ outputs themselves at S in the thousands.  The embedding-bag kernel must
 equal its plain version bit for bit (tolerance 0), in f32 and bf16: both
 sum each bag's rows in f32 in slot order and round the same way; only a
 NaN (an id past the table) is compared as NaN, since the card's bf16
-conversions write different NaN bits.  This file imports no JAX: the
+conversions write different NaN bits.  The table's gradient through the
+kernel must equal autograd's through the plain version bit for bit under
+deterministic algorithms (the same ``index_add_`` on the same inputs).  This file imports no JAX: the
 machine with the card has none.
 """
 import dataclasses
@@ -914,6 +916,47 @@ def test_embedding_bag_kernel_at_a_million_rows_of_256(cuda):
             assert torch.equal(got, embedding_bag_plain(table, bags, mode))
 
 
+@pytest.fixture
+def deterministic():
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+def _bag_grad(table, bags, w, mode, use_kernel):
+    t = table.clone().requires_grad_(True)
+    (embedding_bag_op(t, bags, mode, use_kernel=use_kernel).float() * w).sum().backward()
+    return t.grad
+
+
+@pytest.mark.parametrize("v,d,b,l", [(50, 128, 8, 5), (97, 18, 12, 6), (1000, 256, 4096, 8),
+                                     (500, 8, 7, 100)])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_gradient_through_the_kernel_equals_plain(cuda, deterministic, v, d, b, l,
+                                                                mode, dtype):
+    """The table's gradient through the kernel (its forward, the op's
+    ``index_add_`` backward) equals autograd's through the plain version,
+    bit for bit under deterministic algorithms: pads, all-pad bags,
+    repeated ids within and across bags.  In f32 also within rtol 1e-6 of
+    the CPU's (the same sums; the card's sorted scatter may order a row's
+    contributions otherwise)."""
+    table, bags = (x.to(cuda) for x in _bag_case(v + 7 * d + l, v, d, b, l, dtype))
+    w = torch.randn((b, d), generator=torch.Generator(device=cuda).manual_seed(d), device=cuda)
+    before = eb_kernel.launches
+    got = _bag_grad(table, bags, w, mode, True)
+    want = _bag_grad(table, bags, w, mode, False)
+    torch.cuda.synchronize()
+    assert eb_kernel.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, want)
+    if dtype == torch.float32:
+        cpu = _bag_grad(table.cpu(), bags.cpu(), w.cpu(), mode, True)
+        torch.testing.assert_close(got.cpu(), cpu, rtol=1e-6, atol=1e-7)
+
+
 def test_embedding_bag_kernel_ids_past_the_table_give_nan(cuda):
     table, bags = (x.to(cuda) for x in _bag_case(4, 30, 64, 6, 4, torch.float32))
     bags[1] = torch.tensor([2, 30, -1, 1 << 30], dtype=torch.int32)
@@ -1039,6 +1082,33 @@ def test_four_shard_cluster_on_the_card_equals_the_host_engine_cluster(cuda):
     same_state()
     card.close()
     host.close()
+
+
+def test_graphed_lm_backend_equals_the_eager_one(cuda):
+    """The serving CLI's LM back end with its CUDA graphs (``graph_max``)
+    against the eager one on gemma-2b's smoke config: the same doc ids at
+    every size up to ``graph_max`` (rows padded to a power of two), past
+    it (eager), and from four threads at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import lm_backend
+    from repro_torch.models import transformer as tf
+
+    cfg = get_arch("gemma-2b").smoke_config
+    params = tf.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    eager = lm_backend(params, cfg, 8, device=cuda)
+    graphed = lm_backend(params, cfg, 8, device=cuda, graph_max=4096)
+    qids = np.random.default_rng(8).integers(0, 68_600_000, 5000)
+    for n in (1, 2, 3, 100, 1000, 2049, 4095, 4096, 5000):
+        want = eager(qids[:n])
+        assert want.shape == (n, 8) and want.dtype == np.int32
+        assert np.array_equal(graphed(qids[:n]), want)
+    chunks = [qids[lo : lo + 700 + 37 * lo % 300] for lo in range(0, 4000, 500)]
+    with ThreadPoolExecutor(4) as pool:
+        got = list(pool.map(graphed, chunks))
+    for c, g in zip(chunks, got):
+        assert np.array_equal(g, eager(c))
 
 
 @pytest.fixture(scope="module")

@@ -187,10 +187,12 @@ def test_build_recsys_step_draws_real_ids_at_the_shapes_sizes():
 
 
 def test_build_recsys_step_refuses_what_is_not_ported():
+    """Training is ported (tests/test_torch_recsys_train.py); what is
+    refused now is a family that is not recsys and an unknown kind."""
     arch = treg.get_arch("din")
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="training"):
-        tsteps.build_recsys_step(arch, arch.shape("train_batch"), {}, gen, "cpu", smoke=True)
+    with pytest.raises(ValueError, match="unknown step kind"):
+        tsteps.build_recsys_step(arch, treg.ShapeSpec("x", "eval", {"batch": 4}), {}, gen, "cpu")
     lm = treg.get_arch("gemma-2b")
     with pytest.raises(ValueError, match="not a recsys"):
         tsteps.build_recsys_step(lm, lm.shapes[0], {}, gen, "cpu")
