@@ -134,7 +134,21 @@ Phases (any failure raises and exits non-zero):
    and the device's idle share over a profiled window.  Then the LM back end (the serving
    CLI's miss handler) answers one batch of the serve phase's misses, its
    ids held to forward's top-k.  The LM's weights and KV cache are then
-   released (the peak memory is printed);
+   released (the peak memory is printed).  Then the windowed dense LMs,
+   each at full published width and freed before the next: gemma2-27b (46
+   layers, 23 of them local with a window of 4096, 32 query heads over 16
+   KV heads of 128, both softcaps; 15.5B bf16 parameters) at batch
+   ``LM_WIDE``'s 2 and glm4-9b (40 layers, 32 query heads over 2 KV heads;
+   9.4B) at 8, at decode_32k's 32768 positions with the KV cache drawn from
+   the seeded generator and filled to all but the last ``LM_WIDE_STEPS``:
+   that many greedy steps through the kernel (one launch a layer a step,
+   checked), gemma2-27b's again through the ``decode_window_slice`` lever
+   (teacher-forced by the full read's tokens: logits within
+   ``LM_LOGIT_RTOL``, the greedy tokens but for near-ties), the first
+   steps with the plain attention with every layer call also through the
+   kernel (one bf16 ulp), ms per step and the idle share, and the kernel on
+   layer 0's real call: gemma2-27b's window slice beside its full read with
+   the window and its byte bound, glm4-9b's beside its bound;
 9. train: training on the card (``repro_torch.launch.steps.build_lm_step``
    and ``build_recsys_step``'s train kinds, AdamW).  gemma-2b at full
    published width at train_4k (seq_len 4096, remat, 2.51B bf16 parameters
@@ -182,6 +196,15 @@ Phases (any failure raises and exits non-zero):
    beside its byte bound, the plain version and
    ``torch.nn.functional.embedding_bag``; and SASRec, DIN and MIND at their
    full published widths, one serve_p99 step each (ms and a checksum);
+   gnn: PNA at its full config (4 layers, width 75, d_in 1433, 64
+   classes, f32) through ``build_gnn_step``: the molecule serve step on
+   batches of 128 padded molecules (logits held to the CPU's), then
+   full_graph_sm (``GNN_TRAIN_STEPS`` AdamW steps, step 0 held to the CPU's
+   from the same weights and batch), minibatch_lg (the sampler's block of
+   fanouts 15 and 10 from 1024 seeds of the 114.6M-edge graph, padded to
+   the shape's bound) and ogb_products cut by ``OGB_FRACTION``; each loss
+   finite and falling; ms per call, MFU against the f32 rate, peak memory,
+   the host's batch time and the idle share;
 11. kernels: each cache kernel against its plain PyTorch version on the
    card, tolerance 0 (integer state), on the serving path's own batch (the
    inputs of the second served batch's launch, captured), on a batch spread
@@ -218,7 +241,8 @@ Phases (any failure raises and exits non-zero):
 The last three lines are one JSON object ``{"kernels": [...]}`` (each
 cache kernel's ``launches`` summed over the serve, broker and cluster
 phases, ``topic_score``'s over the topics and cluster phases,
-``embedding_bag``'s over the train and recsys phases, each counted
+``embedding_bag``'s over the train and recsys phases, ``decode_attention``'s
+over gemma-2b's and the windowed LMs' decode runs, each counted
 from 0 just before its path; ``probe_and_commit``'s row also carries the
 migration launch's times and the hash reshard's), the
 card's name and power limit as ``nvidia-smi`` gives them, and
@@ -312,6 +336,60 @@ LM_PROFILE = 4
 #: (an ulp is 2**-8 to 2**-7 of a logit).  2**-6 is two to four ulps of the
 #: row's largest logit.
 LM_LOGIT_RTOL = 2.0**-6
+#: phase lm, the windowed dense LMs: gemma2-27b (local/global layers,
+#: window 4096, Hkv 16, G 2) and glm4-9b (Hkv 2, G 16) at full published
+#: width at decode_32k's 32768 positions, the batch cut from 128 to this:
+#: gemma2-27b's bf16 KV cache is 12.35 GB a sequence beside 31.0 GB of
+#: weights (two sequences: 55.7 GB), glm4-9b's 1.34 GB beside 18.8 GB.  The
+#: KV cache is drawn from the seeded generator (random weights read random
+#: keys; phase lm's gemma-2b prefills its cache) and filled to
+#: LM_SEQ - LM_WIDE_STEPS, then LM_WIDE_STEPS greedy decode steps
+LM_WIDE = (("gemma2-27b", 2), ("glm4-9b", 8))
+#: their parameters: the registry's analytic count, plus the final norm,
+#: gemma2-27b's post-attention and post-MLP norms (2 x 4608 a layer) and
+#: glm4-9b's q/k/v biases ((32 + 2 x 2) x 128 a layer)
+LM_WIDE_PARAMS = {"gemma2-27b": 15_506_145_792, "glm4-9b": 9_399_951_360}
+LM_WIDE_STEPS = 16
+LM_WIDE_PLAIN_STEPS = 2
+LM_WIDE_PROFILE = 2
+#: at these random inits the logits follow the attention closely (with
+#: every attention output zeroed gemma2-27b's move by ~0.9 of the row's
+#: largest |logit|, glm4-9b's by ~0.08; gemma-2b's by 0.004), so one-ulp
+#: roundings of the attention move them by 0.03-0.06, between the kernel
+#: and the plain path as between the lever and the full read (this
+#: script's lm lines on an H100 80GB HBM3 at 700 W).  The kernel is held
+#: layer by layer (decode_close), the lever's window slice to the
+#: kernel's full read with the window on the same inputs within two bf16
+#: ulps (LM_WIDE_LEVER_RTOL, each is one from the f32 result) plus
+#: DECODE_BF16_ATOL of the largest output; the lever's logits within
+#: LM_WIDE_SPREAD times the kernel-to-plain spread (the zeroed-attention
+#: control is printed beside it)
+LM_WIDE_LEVER_RTOL = 2.0**-6
+LM_WIDE_SPREAD = 2.0
+#: phase gnn: PNA at its full config (4 layers, width 75, d_in 1433, 64
+#: classes, f32) on its four shapes.  molecule (serve) timed over
+#: GNN_SERVE_RUNS batches of 128; full_graph_sm GNN_TRAIN_STEPS AdamW steps;
+#: minibatch_lg (the full block) and ogb_products GNN_BIG_STEPS each.
+GNN_SERVE_RUNS = 20
+GNN_TRAIN_STEPS = 8
+GNN_BIG_STEPS = 3
+GNN_PROFILE = 2
+#: ogb_products' nodes and edges both times this (its average degree kept):
+#: a step's peak memory grows with the graph: 66.029 GB at 1/6 on an H100
+#: 80GB HBM3 at 700 W, ~3 GB of it earlier phases' live tensors, so ~380 GB
+#: at full size; 1/5 would need ~79 of the card's 80
+OGB_FRACTION = 1 / 6
+#: the card against the CPU on the same inputs (f32 on both; the card's
+#: index_add sums with atomics, in no fixed order): full_graph_sm's step 0
+#: loss within GNN_LOSS_RTOL and every parameter after its AdamW update
+#: within GNN_PARAM_ATOL (the first step moves an entry by about lr / 100
+#: times the sign of its gradient: an entry whose gradient is rounding noise
+#: may move the other way, 6e-6 apart); molecule logits within
+#: GNN_LOGIT_ATOL_REL of the largest (a node's std of k copies of one
+#: message is the square root of a rounding error, tests/test_torch_gnn.py)
+GNN_LOSS_RTOL = 1e-5
+GNN_PARAM_ATOL = 1e-5
+GNN_LOGIT_ATOL_REL = 1e-3
 #: decode_attention against its plain version.  f32: tests/test_kernels.py's
 #: 2e-6.  bf16: the two compute in f32 and differ there only by their
 #: summation orders, so their bf16 outputs differ by at most one ulp, 2**-7
@@ -1729,28 +1807,61 @@ def phase_topics(device, cfg, keys, true_topic, n_train, served, static_truth):
 # -- phase 8: the LM behind the cache --------------------------------------------
 
 
-def lm_profile(params, cache, cfg, tokens, step_s: float) -> str:
-    """Device busy time per decode step (torch profiler) over LM_PROFILE
-    steps from the prompt's end, against the unprofiled host-clock step."""
+def lm_profile(params, cache, cfg, tokens, step_s: float, start: int = LM_PROMPT,
+               n: int = LM_PROFILE) -> str:
+    """Device busy time per decode step (torch profiler) over ``n`` steps
+    from the fill level ``start``, against the unprofiled host-clock step."""
     from repro_torch.models import transformer as tf
 
-    cache["len"].fill_(LM_PROMPT)
+    cache["len"].fill_(start)
     state = {"cache": cache}
 
     def steps(first, last):
         for t in range(first, last):
             state["cache"] = tf.decode_step(params, state["cache"], tokens[t], cfg)[1]
 
-    kern = device_kernels(lambda: steps(0, 1), lambda: steps(1, LM_PROFILE + 1),
-                          "the decode steps")
-    busy = sum(e.device_time_total for e in kern) / LM_PROFILE / 1e3  # ms per step
+    kern = device_kernels(lambda: steps(0, 1), lambda: steps(1, n + 1), "the decode steps")
+    busy = sum(e.device_time_total for e in kern) / n / 1e3  # ms per step
     top = sorted(kern, key=lambda e: -e.device_time_total)[:6]
-    names = "; ".join(f"{e.key[:60]} {e.device_time_total / LM_PROFILE / 1e3:.3f}ms "
-                      f"x{e.count / LM_PROFILE:.1f}" for e in top)
-    ops = sum(e.count for e in kern) / LM_PROFILE
-    return (f"device busy {busy:.3f} ms/step over {LM_PROFILE} steps, {ops:.1f} device ops/step, idle share "
+    names = "; ".join(f"{e.key[:60]} {e.device_time_total / n / 1e3:.3f}ms "
+                      f"x{e.count / n:.1f}" for e in top)
+    ops = sum(e.count for e in kern) / n
+    return (f"device busy {busy:.3f} ms/step over {n} steps, {ops:.1f} device ops/step, idle share "
             f"{1 - busy / (step_s * 1e3):.4f} of the unprofiled {step_s * 1e3:.3f} ms; per step: "
             f"{names}")
+
+
+def plain_comparison():
+    """``(compare, tally)``: ``compare`` stands in for a decode layer's
+    ``decode_attention_op`` call, runs the plain version and returns it,
+    after running the kernel on the same inputs and holding it to the
+    plain output (``decode_close``); on a window-slice call it also holds
+    the kernel's slice to the kernel's full read with the window
+    (LM_WIDE_LEVER_RTOL).  ``tally`` keeps the calls compared, whether all
+    held, the largest error and ratio, the smallest RMS, and the lever's
+    calls, whether they held and their largest ratio to the bound."""
+    from repro_torch.kernels.decode_attention import decode_attention_op as op
+
+    tally = dict(n=0, ok=True, err=0.0, ratio=0.0, rms=float("inf"), lever=0, lever_ok=True,
+                 lever_ratio=0.0)
+
+    def compare(q, k, v, cur, *rest, use_kernel=True, **kw):
+        want = op(q, k, v, cur, *rest, use_kernel=False, **kw)
+        got = op(q, k, v, cur, *rest, **kw)
+        ok, err, ratio, rms = decode_close(got, want)
+        tally.update(n=tally["n"] + 1, ok=tally["ok"] and ok, err=max(tally["err"], err),
+                     ratio=max(tally["ratio"], ratio), rms=min(tally["rms"], rms))
+        if kw.get("window_slice") is not None:
+            full = op(q, k, v, cur, *rest[:2], kw["window_slice"]).float()
+            diff = (got.float() - full).abs()
+            bound = (LM_WIDE_LEVER_RTOL * full.abs()
+                     + DECODE_BF16_ATOL * float(full.abs().max()))
+            tally.update(lever=tally["lever"] + 1,
+                         lever_ok=tally["lever_ok"] and bool((diff <= bound).all()),
+                         lever_ratio=max(tally["lever_ratio"], float((diff / bound).max())))
+        return want
+
+    return compare, tally
 
 
 def phase_lm(device, miss_ids):
@@ -1839,18 +1950,11 @@ def phase_lm(device, miss_ids):
     # so the cache the kernel run filled serves as the prefilled one.  Each
     # layer's plain call is also run through the kernel on the same inputs
     # (comparison launches, counted apart from the path's)
-    layers = dict(n=0, ok=True, err=0.0, ratio=0.0, rms=float("inf"))
 
-    def compare(q, k, v, cur, *rest, use_kernel=True):
-        want = op(q, k, v, cur, *rest, use_kernel=False)
-        ok, err, ratio, rms = decode_close(op(q, k, v, cur, *rest), want)
-        layers.update(n=layers["n"] + 1, ok=layers["ok"] and ok, err=max(layers["err"], err),
-                      ratio=max(layers["ratio"], ratio), rms=min(layers["rms"], rms))
-        return want
-
+    compare, layers = plain_comparison()
     cache["len"].fill_(LM_PROMPT)
     worst, worst_rel, flips, near, peak = 0.0, 0.0, 0, 0, 0.0
-    with patched(tf, "decode_attention_op", compare) as op:
+    with patched(tf, "decode_attention_op", compare):
         for t in range(LM_PLAIN_STEPS):
             logits, cache = tf.decode_step(params, cache, tokens[t], cfg, use_kernel=False)
             scale = logits.abs().amax(dim=-1, keepdim=True)
@@ -1924,6 +2028,195 @@ def phase_lm(device, miss_ids):
           f"on {same} rows, the rest within an ulp of their scores")
     return dict(params=params, cache=cache, cfg=cfg, launches=launches, args=cap.args,
                 step_s=step_s)
+
+
+def wide_decode(params, cache, cfg, first, start: int, n: int, forced=None, use_kernel=True):
+    """``n`` greedy decode steps from the fill level ``start``, from the
+    token ``first`` or teacher-forced by ``forced``: ``(logits of each
+    step, the tokens, s per step)`` on the host clock, synchronised."""
+    from repro_torch.models import transformer as tf
+
+    cache["len"].fill_(start)
+    tokens, kept = [first], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(n):
+        logits, cache = tf.decode_step(params, cache, (forced or tokens)[t], cfg,
+                                       use_kernel=use_kernel)
+        kept.append(logits)
+        tokens.append(logits.argmax(dim=-1, keepdim=True))
+    torch.cuda.synchronize()
+    return kept, tokens, (time.perf_counter() - t0) / n
+
+
+def logits_apart(got, want):
+    """``(largest difference relative to the row's largest |logit|, greedy
+    tokens that differ, how many of them where want's top two lie within
+    LM_LOGIT_RTOL)`` over steps."""
+    worst, flips, near = 0.0, 0, 0
+    for g, w in zip(got, want):
+        scale = w.abs().amax(dim=-1, keepdim=True)
+        worst = max(worst, float(((g - w).abs() / scale).max()))
+        differ = torch.nonzero(g.argmax(dim=-1) != w.argmax(dim=-1))[:, 0]
+        flips += len(differ)
+        if len(differ):
+            top2 = w[differ].topk(2, dim=-1).values
+            near += int(((top2[:, 0] - top2[:, 1]) <= LM_LOGIT_RTOL * scale[differ, 0]).sum())
+    return worst, flips, near
+
+
+def wide_lm(device, name: str, batch: int, flush) -> dict:
+    """One windowed dense LM at full published width: greedy decode through
+    the decode_attention kernel (with gemma2-27b's local layers also through
+    the decode_window_slice lever), every layer call of the first steps held
+    to the plain version, the lever's logits to the full read's; ms per
+    step, the idle share, and the kernel's time on a layer's real call."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    from repro_torch.models import transformer as tf
+
+    arch = get_arch(name)
+    cfg = arch.config
+    dec = arch.shape("decode_32k").dims
+    check(dec["seq_len"] == LM_SEQ, "decode_32k keeps its length")
+    gen = torch.Generator(device=device).manual_seed(SEED + 51)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(gen, cfg)
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == LM_WIDE_PARAMS[name], f"{name}'s parameter count {n_params}")
+    cache = tf.init_cache(cfg, batch, LM_SEQ, device=device)
+    cache["k"].normal_(generator=gen)
+    cache["v"].normal_(generator=gen)
+    first = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen, device=device)
+    torch.cuda.synchronize()
+    kv_gb = 2 * cache["k"].numel() * cache["k"].element_size() / 1e9
+    local = int(cfg.layer_is_local().sum())
+    print(f"lm/{name}/model: at full width (configs/registry.py): {cfg.n_layers} layers "
+          f"({local} local, window {cfg.window}), d {cfg.d_model}, {cfg.n_heads} query heads "
+          f"over {cfg.n_kv_heads} KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocabulary "
+          f"{cfg.vocab_size}, {cfg.dtype}; {n_params} parameters ({n_params * 2 / 1e9:.3f} GB) "
+          f"from a seeded generator on the card; KV cache {batch} x {LM_SEQ} ({kv_gb:.3f} GB, "
+          f"drawn from the generator; decode_32k's batch {dec['global_batch']} would need "
+          f"{kv_gb * dec['global_batch'] / batch:.3f} GB); set up in "
+          f"{time.perf_counter() - t0:.3f} s")
+    start = LM_SEQ - LM_WIDE_STEPS
+
+    # the main path: greedy decode through the kernel, the counts from 0
+    dak.launches = 0
+    full, tokens, full_s = wide_decode(params, cache, cfg, first, start, LM_WIDE_STEPS)
+    launches = dak.launches
+    check(launches == cfg.n_layers * LM_WIDE_STEPS,
+          f"{name}: decode_attention launches {launches} == {cfg.n_layers} x {LM_WIDE_STEPS}")
+    check(all(bool(torch.isfinite(x).all()) for x in full), f"{name}: logits are finite")
+    out = dict(launches=launches)
+    line = (f"lm/{name}/decode: {LM_WIDE_STEPS} greedy steps x batch {batch} from {start} to "
+            f"{LM_SEQ} cached positions: {full_s * 1e3:.3f} ms/step (host clock, "
+            f"synchronised), {batch / full_s:.1f} tokens/s; decode_attention launches "
+            f"{launches}")
+    run_cfg, path = cfg, full
+    if local:  # the same steps through the lever, teacher-forced by the full read's tokens
+        run_cfg = dataclasses.replace(cfg, decode_window_slice=True)
+        dak.launches = 0
+        with Capture(tf, "decode_attention_op", 0) as cap:  # layer 0 (local) of step 0
+            path, _, lever_s = wide_decode(params, cache, run_cfg, first, start,
+                                           LM_WIDE_STEPS, forced=tokens)
+        out["launches"] += dak.launches
+        check(dak.launches == cfg.n_layers * LM_WIDE_STEPS,
+              f"{name}: decode_attention launches with the lever {dak.launches}")
+        line += (f"; with decode_window_slice {lever_s * 1e3:.3f} ms/step, "
+                 f"{batch / lever_s:.1f} tokens/s, launches {dak.launches}")
+    else:
+        with Capture(tf, "decode_attention_op", 0) as cap:
+            wide_decode(params, cache, cfg, first, start, 1)
+    print(line)
+
+    # the first steps again with the plain decode attention, each layer call
+    # also through the kernel on the same inputs (and, with the lever,
+    # through the kernel's full read)
+    compare, tally = plain_comparison()
+    with patched(tf, "decode_attention_op", compare):
+        plain, _, _ = wide_decode(params, cache, run_cfg, first, start, LM_WIDE_PLAIN_STEPS,
+                                  forced=tokens, use_kernel=False)
+    check(tally["n"] == cfg.n_layers * LM_WIDE_PLAIN_STEPS, f"{name}: every layer compared")
+    check(tally["lever"] == (local * LM_WIDE_PLAIN_STEPS), f"{name}: every local layer's "
+          f"window slice held to the full read")
+    spread = logits_apart(plain, path)
+    with patched(tf, "decode_attention_op", lambda q, *a, **kw: torch.zeros_like(q)):
+        ctrl = wide_decode(params, cache, cfg, first, start, 1, forced=tokens)[0]
+    ctrl = logits_apart(ctrl, full)[0]
+    lever_line = ""
+    if local:
+        apart = logits_apart(path, full)
+        lever_line = (f"; the window slice within {tally['lever_ratio']:.4f} of its bound from "
+                      f"the kernel's full read with the window on each of the {tally['lever']} "
+                      f"local layer calls; over the {LM_WIDE_STEPS} steps the lever's logits "
+                      f"{apart[0]:.6f} of the row's largest |logit| from the full read's, greedy "
+                      f"tokens differ on {apart[1]} of {LM_WIDE_STEPS * batch}")
+    print(f"lm/{name}/plain: {LM_WIDE_PLAIN_STEPS} teacher-forced steps with the plain decode "
+          f"attention{' and the lever' if local else ''}: each of their {tally['n']} layer "
+          f"calls through the kernel on the same inputs: max abs err {tally['err']:.3e}, "
+          f"{tally['ratio']:.4f} of the bound (one bf16 ulp + {DECODE_BF16_ATOL} of the "
+          f"largest output; smallest output RMS {tally['rms']:.3e}); logits {spread[0]:.6f} of "
+          f"the row's largest |logit| from the kernel path's, greedy tokens differ on "
+          f"{spread[1]}{lever_line}; control: every attention output zeroed moves step 0's "
+          f"logits by {ctrl:.6f} ({ctrl / max(spread[0], 1e-30):.1f}x that spread)")
+    check(tally["ok"], f"{name}: decode_attention != plain on a layer call "
+          f"({tally['ratio']:.4f} of the bound)")
+    check(tally["lever_ok"], f"{name}: the window slice != the full read on a layer call "
+          f"({tally['lever_ratio']:.4f} of the bound)")
+    if local:
+        check(apart[0] <= LM_WIDE_SPREAD * max(spread[0], LM_LOGIT_RTOL),
+              f"{name}: the lever's logits differ from the full read's by {apart[0]}, beyond "
+              f"{LM_WIDE_SPREAD}x the kernel-to-plain spread {spread[0]}")
+    print(f"lm/{name}/profile: " + lm_profile(params, cache, run_cfg, tokens, (
+        lever_s if local else full_s), start=start, n=LM_WIDE_PROFILE))
+
+    # the kernel on layer 0's real call (step 0), beside its byte bound
+    q, k, v, cur, scale, cap_, win = cap.args
+    noop = lambda: None  # noqa: E731
+    if local:
+        w = cfg.window
+        nb = decode_bytes(q, k, int(cur), w)
+        out.update(
+            slice_ms=time_device(lambda: dak.decode_attention(q, k, v, cur, scale, cap_, None, w),
+                                 20, flush, noop),
+            full_ms=time_device(lambda: dak.decode_attention(q, k, v, cur, scale, cap_, w), 20,
+                                flush, noop),
+            plain_ms=time_host(lambda: decode_attention_plain(q, k, v, cur, scale, cap_, None, w),
+                               5, flush, noop))
+        kind = (f"window slice {out['slice_ms']:.6f} ms, the full read with the window "
+                f"{out['full_ms']:.6f} ms, plain (slice) {out['plain_ms']:.6f} ms")
+    else:
+        nb = decode_bytes(q, k, int(cur), win)
+        out.update(full_ms=time_device(lambda: dak.decode_attention(q, k, v, cur, scale, cap_, win),
+                                       20, flush, noop),
+                   plain_ms=time_host(lambda: decode_attention_plain(q, k, v, cur, scale, cap_,
+                                                                     win), 5, flush, noop))
+        kind = f"{out['full_ms']:.6f} ms, plain {out['plain_ms']:.6f} ms"
+    out["bound_ms"] = nb / HBM_BYTES_PER_S * 1e3
+    b_, hkv, g, d = q.shape
+    print(f"lm/{name}/kernel: layer 0's call (B={b_} Hkv={hkv} G={g} d={d} S={k.shape[1]} "
+          f"cur={int(cur)}, {q.dtype}): device {kind} (L2 flushed); byte bound "
+          f"{out['bound_ms']:.6f} ms ({nb / 1e9:.6f} GB); peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated in this model's run")
+    out.update(step_ms=full_s * 1e3, lever_ms=lever_s * 1e3 if local else None)
+    del params, cache, cap, q, k, v
+    return out
+
+
+def phase_lm_windowed(device):
+    """gemma2-27b and glm4-9b at full width, each after the previous one is
+    freed (``wide_lm``)."""
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=device)  # 256 MiB > L2
+    out = {}
+    for name, batch in LM_WIDE:
+        out[name] = wide_lm(device, name, batch, flush)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del flush
+    return out
 
 
 # -- phase 9: training: gemma-2b at full width, the CLI, the recsys losses -----
@@ -2578,6 +2871,141 @@ def phase_recsys(device):
     return dict(launches=launches, row=row)
 
 
+def gnn_profile(step, label: str, med_s: float, n: int = GNN_PROFILE) -> str:
+    """Device busy time per call over ``n`` calls (torch profiler) against
+    the unprofiled median: the idle share, and the top device ops."""
+    kern = device_kernels(lambda: step.fn(step.batch),
+                          lambda: [step.fn(step.batch) for _ in range(n)], f"the {label} steps")
+    busy = sum(e.device_time_total for e in kern) / n / 1e3
+    top = "; ".join(f"{e.key[:50]} {e.device_time_total / n / 1e3:.3f}ms"
+                    for e in sorted(kern, key=lambda e: -e.device_time_total)[:4])
+    return (f"device busy {busy:.3f} ms/call, idle share {1 - busy / (med_s * 1e3):.4f}; "
+            f"top: {top}")
+
+
+def gnn_train(device, arch, shape, gen, steps: int, against_cpu: bool = False) -> dict:
+    """One PNA train shape on the card through ``build_gnn_step`` (fresh
+    seeded weights, AdamW): ``steps`` steps, each loss finite, the last
+    below the first.  With ``against_cpu``, step 0 runs on the CPU too,
+    from the same weights and batch: the loss within GNN_LOSS_RTOL, every
+    parameter after the update within GNN_PARAM_ATOL."""
+    from repro_torch.launch.steps import build_gnn_step
+    from repro_torch.models import gnn
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    torch.cuda.reset_peak_memory_stats()
+    params = gnn.init_params(gen, arch.config)
+    before = tree_map(lambda t: t.detach().cpu().clone(), params)
+    t0 = time.perf_counter()
+    step = build_gnn_step(arch, shape, params, gen, device)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    losses, secs = [], []
+    for i in range(steps):
+        (_, _, out), sec = timed(lambda: step.fn(step.batch))
+        losses.append(float(out["loss"]))
+        secs.append(sec)
+        if i == 0 and against_cpu:
+            card0 = [t.detach().cpu().clone() for t in tree_leaves(params)]
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"pna {shape.name}: losses are finite: {losses}")
+    check(losses[-1] < losses[0], f"pna {shape.name}: the loss falls: {losses}")
+    out = dict(step=step, losses=losses, med=float(np.median(secs[1:])), first_s=secs[0],
+               peak=peak, host_s=host_s)
+    if against_cpu:
+        cpu = build_gnn_step(arch, shape, before, torch.Generator().manual_seed(SEED), "cpu")
+        loss_cpu = float(cpu.fn({k: v.cpu() for k, v in step.batch.items()})[2]["loss"])
+        param_err = max(float((a - b.detach()).abs().max())
+                        for a, b in zip(card0, tree_leaves(before)))
+        rel = abs(losses[0] - loss_cpu) / abs(loss_cpu)
+        check(rel <= GNN_LOSS_RTOL and param_err <= GNN_PARAM_ATOL,
+              f"pna {shape.name}: step 0 on the card != on the CPU (loss {losses[0]} against "
+              f"{loss_cpu}, parameters {param_err} apart)")
+        out.update(cpu_loss=loss_cpu, cpu_rel=rel, cpu_param_err=param_err)
+    return out
+
+
+def phase_gnn(device):
+    """PNA at its full config on the card: the molecule serve step and the
+    three train shapes (``build_gnn_step``); ms per call, MFU against the
+    f32 rate, peak memory and the idle share of each."""
+    import dataclasses as dc
+
+    from repro_torch.configs import pna
+    from repro_torch.launch.steps import build_gnn_step
+    from repro_torch.models import gnn
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    arch, cfg = pna.ARCH, pna.CONFIG
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    params = gnn.init_params(gen, cfg)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"gnn/model: pna (configs/registry.py) at full width: {cfg.n_layers} layers, width "
+          f"{cfg.d_hidden}, d_in {cfg.d_in}, {cfg.n_classes} classes, {cfg.dtype}; {n_params} "
+          f"parameters from a seeded generator on the card; f32 products in IEEE f32 (no TF32)")
+
+    # molecule: the serve step, batches of 128 padded molecules
+    torch.cuda.reset_peak_memory_stats()
+    shape = arch.shape("molecule")
+    t0 = time.perf_counter()
+    step = build_gnn_step(arch, shape, params, gen, device)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    b = step.batch["x"].shape[0]
+    first = step.fn(step.batch)
+    check(first.shape == (b, cfg.n_classes) and bool(torch.isfinite(first).all()),
+          "pna molecule: logits are finite")
+    secs = [timed(lambda: step.fn(step.batch))[1] for _ in range(GNN_SERVE_RUNS)]
+    med = float(np.median(secs))
+    cpu_params = tree_map(lambda t: t.detach().cpu(), params)
+    want = gnn.forward_batched(cpu_params, *(step.batch[k].cpu() for k in
+                                             ("x", "edge_index", "node_mask")), cfg)
+    err = float((first.cpu() - want).abs().max())
+    check(err <= GNN_LOGIT_ATOL_REL * float(want.abs().max()),
+          f"pna molecule: the card's logits are {err} from the CPU's")
+    real = int(step.batch["node_mask"].sum())
+    print(f"gnn/molecule: {b} molecules of <= {shape.dims['n_nodes']} atoms ({real} real) and "
+          f"<= {shape.dims['n_edges']} bonds (batch drawn in {host_s:.3f} s): {med * 1e3:.3f} "
+          f"ms/batch median over {GNN_SERVE_RUNS} (host clock, synchronised), "
+          f"{b / med:.1f} molecules/s, MFU {step.model_flops / med / F32_FLOP_PER_S:.6f} of "
+          f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s (f32); logits {err:.3e} from the CPU's "
+          f"(tolerance {GNN_LOGIT_ATOL_REL} of the largest, {float(want.abs().max()):.3f}); "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+          + gnn_profile(step, "molecule", med))
+    out = {"molecule": dict(ms=med * 1e3)}
+    del step, params, first
+
+    cut = arch.shape("ogb_products")
+    cut = dc.replace(cut, dims=dict(cut.dims, n_nodes=int(cut.dims["n_nodes"] * OGB_FRACTION),
+                                    n_edges=int(cut.dims["n_edges"] * OGB_FRACTION)))
+    for shape, steps in ((arch.shape("full_graph_sm"), GNN_TRAIN_STEPS),
+                         (arch.shape("minibatch_lg"), GNN_BIG_STEPS), (cut, GNN_BIG_STEPS)):
+        r = gnn_train(device, arch, shape, gen, steps, against_cpu=shape.name == "full_graph_sm")
+        st = r["step"]
+        n, e = st.batch["x"].shape[0], st.batch["edge_index"].shape[1]
+        real_e = int((st.batch["edge_index"][1] < n).sum())
+        labelled = int(st.batch["label_mask"].sum())
+        mfu = st.model_flops / r["med"] / F32_FLOP_PER_S
+        line = (f"gnn/{shape.name}: {n} nodes and {e} edges padded ({real_e} real edges, "
+                f"{labelled} labelled nodes; graph and batch built in {r['host_s']:.3f} s, the "
+                f"host's share); losses {' '.join(f'{x:.6f}' for x in r['losses'])}; ms/step "
+                f"median {r['med'] * 1e3:.3f} over steps 1-{steps - 1} (host clock, "
+                f"synchronised; step 0 {r['first_s'] * 1e3:.3f}), model_flops "
+                f"{st.model_flops:.4e} a step, MFU {mfu:.6f} of {F32_FLOP_PER_S / 1e12:.0f} "
+                f"TFLOP/s (f32); peak {r['peak'] / 1e9:.3f} GB allocated")
+        if "cpu_loss" in r:
+            line += (f"; step 0 on the CPU from the same weights and batch: loss "
+                     f"{r['cpu_loss']:.6f} ({r['cpu_rel']:.3e} relative), parameters after "
+                     f"AdamW {r['cpu_param_err']:.3e} apart")
+        print(line)
+        print(f"gnn/{shape.name}/profile: " + gnn_profile(st, shape.name, r["med"]))
+        out[shape.name] = dict(ms=r["med"] * 1e3, mfu=mfu, peak=r["peak"], n=n, e=e)
+        del r, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 11: kernels against their plain versions -----------------------------
 
 
@@ -3189,8 +3617,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"memory: peak {max(early_peak, torch.cuda.max_memory_allocated()) / 1e9:.3f} GB "
-          f"allocated through phase lm; {torch.cuda.memory_allocated() / 1e9:.3f} GB after "
-          f"releasing the LM")
+          f"allocated through phase lm's gemma-2b; {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+          f"after releasing it")
+    wide = phase("lm/windowed", phase_lm_windowed, device)
     torch.cuda.reset_peak_memory_stats()
     train = phase("train", phase_train, device)
     gc.collect()
@@ -3199,6 +3628,9 @@ def main() -> int:
     rec = phase("recsys", phase_recsys, device)
     print(f"memory: peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated in phase "
           f"recsys")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("gnn", phase_gnn, device)
     rows = phase("kernels", phase_kernels, device, served, topics, lm)
     lm_launches = lm["launches"]
     del lm
@@ -3233,11 +3665,21 @@ def main() -> int:
         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
     ))
     r = rows["decode_attention"]
+    g27, glm = wide["gemma2-27b"], wide["glm4-9b"]
     kernels.append(dict(
         name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention/kernel.py:90", launches=lm_launches,
+        replaces="src/repro/kernels/decode_attention/kernel.py:90",
+        launches=lm_launches + g27["launches"] + glm["launches"],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
+        # the windowed LMs' paths (phase lm): gemma2-27b's local layer 0
+        # through the window slice and the full read, glm4-9b's layer 0
+        launches_by_path={"gemma-2b": lm_launches, "gemma2-27b": g27["launches"],
+                          "glm4-9b": glm["launches"]},
+        gemma2_27b_slice_ms=g27["slice_ms"], gemma2_27b_full_ms=g27["full_ms"],
+        gemma2_27b_plain_ms=g27["plain_ms"], gemma2_27b_bound_ms=g27["bound_ms"],
+        glm4_9b_ms=glm["full_ms"], glm4_9b_plain_ms=glm["plain_ms"],
+        glm4_9b_bound_ms=glm["bound_ms"],
     ))
     r = rec["row"]  # the serve_bulk user bag
     kernels.append(dict(

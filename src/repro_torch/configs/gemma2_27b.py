@@ -1,0 +1,7 @@
+"""Config module for --arch gemma2-27b (see registry.py for the full spec)."""
+from .registry import get_arch
+
+ARCH = get_arch("gemma2-27b")
+CONFIG = ARCH.config
+SMOKE_CONFIG = ARCH.smoke_config
+SHAPES = {s.name: s for s in ARCH.shapes}

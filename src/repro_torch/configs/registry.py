@@ -1,10 +1,10 @@
-"""Architecture registry: the LM and recsys parts of
-``repro.configs.registry``.
+"""Architecture registry: the port of ``repro.configs.registry``.
 
-The five LM and four recsys architectures with their full published
-configurations, their reduced smoke configurations (CPU-runnable) and their
-input shapes, as the reference has them, with torch dtypes.  The GNN entry
-is named but not ported yet: :func:`get_arch` raises for it.
+The five LM architectures, PNA (the GNN family) and the four recsys
+architectures with their full published configurations, their reduced
+smoke configurations (CPU-runnable) and their input shapes, as the
+reference has them, with torch dtypes.  ``all_cells`` waits with the mesh
+(ROADMAP.md, Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..models.gnn import PNAConfig
 from ..models.recsys import DINConfig, MINDConfig, SASRecConfig, TwoTowerConfig
 from ..models.transformer import MoEConfig, TransformerConfig
 
@@ -191,6 +192,38 @@ ARCTIC_480B = Arch(
 )
 
 # ---------------------------------------------------------------------------
+# GNN: PNA
+# ---------------------------------------------------------------------------
+
+PNA = Arch(
+    name="pna",
+    family="gnn",
+    # [arXiv:2004.05718] 4 layers, width 75, aggregators mean/max/min/std,
+    # scalers identity/amplification/attenuation.
+    config=PNAConfig(n_layers=4, d_hidden=75, d_in=1433, n_classes=64),
+    smoke_config=PNAConfig(n_layers=2, d_hidden=16, d_in=24, n_classes=8),
+    shapes=(
+        ShapeSpec("full_graph_sm", "train", {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433}),
+        ShapeSpec(
+            "minibatch_lg",
+            "train",
+            # fanout 15-10 from 1024 seeds: block bounded by
+            # 1024*(1 + 15 + 150) nodes and 1024*(15+150) edges
+            {"n_nodes": 232_965, "n_edges": 114_615_892, "batch_nodes": 1024,
+             "fanout0": 15, "fanout1": 10,
+             "block_nodes": 1024 * (1 + 15 + 150), "block_edges": 1024 * (15 + 150),
+             "d_feat": 602},
+        ),
+        ShapeSpec("ogb_products", "train", {"n_nodes": 2_449_029, "n_edges": 61_859_140, "d_feat": 100}),
+        ShapeSpec("molecule", "serve", {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 64}),
+    ),
+    notes=(
+        "Result caching applies to the molecule (request-stream) shape; "
+        "full-graph shapes are single mega-requests (see DESIGN.md §5)."
+    ),
+)
+
+# ---------------------------------------------------------------------------
 # RecSys (shapes shared across the 4 recsys archs)
 # ---------------------------------------------------------------------------
 
@@ -243,21 +276,12 @@ MIND_ARCH = Arch(
 ARCHS: Dict[str, Arch] = {
     a.name: a
     for a in (
-        GEMMA2_27B, GEMMA_2B, GLM4_9B, LLAMA4_SCOUT, ARCTIC_480B,
+        GEMMA2_27B, GEMMA_2B, GLM4_9B, LLAMA4_SCOUT, ARCTIC_480B, PNA,
         TWO_TOWER, SASREC, DIN, MIND_ARCH,
     )
 }
 
-#: the reference's other entries and their families, not ported yet
-NOT_PORTED: Dict[str, str] = {"pna": "gnn"}
-
-
 def get_arch(name: str) -> Arch:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} ({NOT_PORTED[name]} family) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 12)"
-        )
     if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS) + sorted(NOT_PORTED)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]

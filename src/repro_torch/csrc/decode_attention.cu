@@ -34,10 +34,15 @@
 // reference, so skipping them is the same function.  When the mask keeps
 // no position at all (a window that lies past the cache), the reference's
 // softmax is uniform over S, and the blocks then sweep every position with
-// the score -1e30.  A second launch merges each (b, h)'s partial (m, l,
-// acc) states: weights exp(m_i - M), out = sum w_i acc_i / max(sum w_i l_i,
-// 1e-30), cast to q's type with round-to-nearest-even.  Precise expf and
-// tanhf, no fast-math.
+// the score -1e30.  The window-slice mode (slice_w > 0, the reference's
+// decode_window_slice lever on a local layer) plans the split over the
+// slice_w keys of the window slice instead of S: each block computes the
+// slice's start from cur on the device and reads rows base + j, with the
+// batch stride still S, so every block of the split has keys of the window
+// where over S most would be empty.  A second launch merges each (b, h)'s
+// partial (m, l, acc) states: weights exp(m_i - M), out = sum w_i acc_i /
+// max(sum w_i l_i, 1e-30), cast to q's type with round-to-nearest-even.
+// Precise expf and tanhf, no fast-math.
 //
 // bf16 (the decode path's type), decode_tc_kernel<D>:
 //  * Both products on the tensor cores, mma.sync m16n8k16 bf16 -> f32.
@@ -129,17 +134,32 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The positions of the chunk [split * chunk, +chunk) that the block sweeps:
-// [start, end), and whether the mask keeps any position of S at all.
+// The positions of the chunk [base + split * chunk, +chunk) that the block
+// sweeps: [start, end), and whether the mask keeps any position of the keys
+// planned over at all.  Those keys are all of S (base 0), or with slice_w >
+// 0 the window slice [base, base + slice_w), base = clamp(cur - (slice_w -
+// 1), 0, S - slice_w), computed here from cur: the reference's
+// decode_window_slice reads that slice and masks only pos <= cur in it.
 struct Span {
   int start, end;
   bool any;
-  __device__ Span(long long cur, int s_len, int window, int split, int chunk) {
-    const long long lo_v = window > 0 ? (cur - window + 1 > 0 ? cur - window + 1 : 0) : 0;
-    const long long hi_v = cur < s_len - 1 ? cur : s_len - 1;
+  __device__ Span(long long cur, int s_len, int window, int slice_w, int split, int chunk) {
+    long long base = 0, len = s_len, lo_v = 0;
+    if (slice_w > 0) {
+      base = cur - (slice_w - 1);
+      if (base > s_len - slice_w) base = s_len - slice_w;
+      if (base < 0) base = 0;
+      len = slice_w;
+      lo_v = base;
+    } else if (window > 0) {
+      lo_v = cur - window + 1 > 0 ? cur - window + 1 : 0;
+    }
+    const long long hi_v = cur < base + len - 1 ? cur : base + len - 1;
     any = lo_v <= hi_v;
-    start = split * chunk;
-    end = start + chunk < s_len ? start + chunk : s_len;
+    const long long s0 = base + static_cast<long long>(split) * chunk;
+    const long long e0 = s0 + chunk < base + len ? s0 + chunk : base + len;
+    start = static_cast<int>(s0);
+    end = static_cast<int>(e0);
     if (any) {
       if (start < lo_v) start = static_cast<int>(lo_v);
       if (end > hi_v + 1) end = static_cast<int>(hi_v + 1);
@@ -186,8 +206,8 @@ template <int ACC>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const int* __restrict__ cur_ptr, int s_len,
-                    int hkv, int g, int d, float scale, float cap, int window, int chunk,
-                    float* __restrict__ part_ml, float* __restrict__ part_acc) {
+                    int hkv, int g, int d, float scale, float cap, int window, int slice_w,
+                    int chunk, float* __restrict__ part_ml, float* __restrict__ part_acc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const SplitSmem lay(g, d);
   const int kp = lay.kp;
@@ -204,7 +224,7 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = pair / hkv, h = pair % hkv;
   const int split = blockIdx.x, n_split = gridDim.x;
   const int gd = g * d;
-  const Span span(*cur_ptr, s_len, window, split, chunk);
+  const Span span(*cur_ptr, s_len, window, slice_w, split, chunk);
   const int start = span.start, end = span.end;
 
   for (int e = tid; e < gd; e += kThreads) q_s[e] = q[static_cast<size_t>(pair) * gd + e];
@@ -468,7 +488,7 @@ template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
 decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ cur_ptr, int s_len, int hkv,
-                 int g, float scale, float cap, int window, int chunk, int stages,
+                 int g, float scale, float cap, int window, int slice_w, int chunk, int stages,
                  int head_slots, float* __restrict__ part_ml, float* __restrict__ part_acc) {
   using S = Tc<D>;
   constexpr int kR = S::kR, kRow = S::kRow;
@@ -484,7 +504,7 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int pair = blockIdx.y;
   const int b = pair / hkv, h = pair % hkv;
   const int split = blockIdx.x;
-  const Span span(*cur_ptr, s_len, window, split, chunk);
+  const Span span(*cur_ptr, s_len, window, slice_w, split, chunk);
   const int n_keys = span.end > span.start ? span.end - span.start : 0;
   const int n_tiles = (n_keys + stage_keys - 1) / stage_keys;
 
@@ -769,7 +789,7 @@ bool tc_takes(int g, int d, int stages, int head_slots) {
 
 cudaError_t launch_f32(const float* q, const float* k, const float* v, const int* cur, int b,
                        int s, int hkv, int g, int d, float scale, float cap, int window,
-                       int chunk, int n_split, float* part_ml, float* part_acc,
+                       int slice_w, int chunk, int n_split, float* part_ml, float* part_acc,
                        cudaStream_t stream) {
   const size_t smem = SplitSmem(g, d).total;
   return with_acc(g * d, [&](auto acc) {
@@ -779,15 +799,15 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const int
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     decode_split_kernel<kAcc><<<dim3(n_split, b * hkv), kThreads, smem, stream>>>(
-        q, k, v, cur, s, hkv, g, d, scale, cap, window, chunk, part_ml, part_acc);
+        q, k, v, cur, s, hkv, g, d, scale, cap, window, slice_w, chunk, part_ml, part_acc);
     return cudaGetLastError();
   });
 }
 
 cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const int* cur, int b,
                       int s, int hkv, int g, int d, float scale, float cap, int window,
-                      int chunk, int n_split, int stages, int head_slots, float* part_ml,
-                      float* part_acc, cudaStream_t stream) {
+                      int slice_w, int chunk, int n_split, int stages, int head_slots,
+                      float* part_ml, float* part_acc, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes(stages, head_slots);
   return with_d(d, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
@@ -796,8 +816,8 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const int* cu
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     decode_tc_kernel<D><<<dim3(n_split, b * hkv), kTcThreads, smem, stream>>>(
-        q, k, v, cur, s, hkv, g, scale, cap, window, chunk, stages, head_slots, part_ml,
-        part_acc);
+        q, k, v, cur, s, hkv, g, scale, cap, window, slice_w, chunk, stages, head_slots,
+        part_ml, part_acc);
     return cudaGetLastError();
   });
 }
@@ -841,8 +861,11 @@ int decode_attention_blocks_per_sm(int g, int d, int dtype, int stages, int head
 // q (b, hkv, g, d), k and v (b, s, hkv, d), out (b, hkv, g, d), row-major
 // and contiguous, all float32 (dtype 0) or bfloat16 (dtype 1), k and v
 // 16-byte aligned; cur is an int32 on the device.  cap <= 0 means no
-// softcap, window <= 0 no window.
-// The wrapper picks chunk and n_split with chunk * n_split >= s, for bf16
+// softcap, window <= 0 no window.  slice_w in 1..s reads only the window
+// slice of slice_w keys that ends at cur (Span; window must then be <= 0),
+// 0 all of S.
+// The wrapper picks chunk and n_split with chunk * n_split >= the keys
+// planned over (s, or slice_w), for bf16
 // the ring's stages and the head slots (1, 2 or 4; key_slots = 4 /
 // head_slots); chunk is a multiple of 32 keys for f32 and of a stage's
 // keys, key_slots * 4096 / d, for bf16.  It allocates
@@ -851,18 +874,20 @@ int decode_attention_blocks_per_sm(int g, int d, int dtype, int stages, int head
 // `stream`; does not synchronise.
 int decode_attention_launch(const void* q, const void* k, const void* v, const void* cur,
                             int b, int s, int hkv, int g, int d, float scale, float cap,
-                            int window, int dtype, int chunk, int n_split, int stages,
-                            int head_slots, void* part_ml, void* part_acc, void* out,
-                            void* stream) {
+                            int window, int slice_w, int dtype, int chunk, int n_split,
+                            int stages, int head_slots, void* part_ml, void* part_acc,
+                            void* out, void* stream) {
   const int elem = dtype == 0 ? 4 : 2;
   if ((dtype != 0 && dtype != 1) || !takes(g, d, elem) ||
       (dtype == 1 && !tc_takes(g, d, stages, head_slots)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tile = dtype == 0 ? kTile : tc_stage_keys(d, head_slots);
+  const int keys = slice_w > 0 ? slice_w : s;  // the keys the split covers
   if (b <= 0 || s <= 0 || hkv <= 0 || reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(v) % 16 != 0 || chunk <= 0 || chunk % tile != 0 ||
-      n_split <= 0 || n_split > 65535 || static_cast<long long>(chunk) * n_split < s ||
-      static_cast<long long>(b) * hkv > 65535)
+      n_split <= 0 || n_split > 65535 || static_cast<long long>(chunk) * n_split < keys ||
+      static_cast<long long>(b) * hkv > 65535 || slice_w < 0 || slice_w > s ||
+      (slice_w > 0 && window > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* c = static_cast<const int*>(cur);
   float* ml = static_cast<float*>(part_ml);
@@ -873,12 +898,12 @@ int decode_attention_launch(const void* q, const void* k, const void* v, const v
   if (dtype == 0) {
     err = launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                      static_cast<const float*>(v), c, b, s, hkv, g, d, scale, cap, window,
-                     chunk, n_split, ml, acc, st);
+                     slice_w, chunk, n_split, ml, acc, st);
     n_part = n_split;
   } else {
     err = launch_tc(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v), c, b, s, hkv, g, d, scale, cap, window, chunk,
-                    n_split, stages, head_slots, ml, acc, st);
+                    static_cast<const bf16*>(v), c, b, s, hkv, g, d, scale, cap, window,
+                    slice_w, chunk, n_split, stages, head_slots, ml, acc, st);
     n_part = n_split * (kTcWarps / head_slots);
   }
   if (err != cudaSuccess) return static_cast<int>(err);

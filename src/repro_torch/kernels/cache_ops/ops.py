@@ -39,6 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .kernel import probe_and_commit as _probe_and_commit
+from .ref import conflict_round
 from .serve_kernel import serve_fused as _serve_fused
 
 #: words packed per cache slot: key_hi, key_lo, stamp, insertion epoch
@@ -95,6 +96,59 @@ def plan_segments(set_idx: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     seg_len.scatter_add_(0, seg_id, torch.ones_like(seg_id))
     seg_set = sset[leader.clamp(max=b - 1)]  # padded slots repeat the last set
     return tuple(_i32(x) for x in (order, seg_id, leader, seg_len, seg_set))
+
+
+def resolve_conflicts(
+    rows_hi: torch.Tensor,  # (B, W) one pristine row per segment
+    rows_lo: torch.Tensor,
+    rows_st: torch.Tensor,
+    rows_ep: torch.Tensor,  # (B, W) insertion epochs (uint32 bits)
+    s_hi: torch.Tensor,  # (B,) sorted request fields
+    s_lo: torch.Tensor,
+    s_pos: torch.Tensor,  # original batch positions (stamps follow arrival)
+    s_admit: torch.Tensor,
+    s_static: torch.Tensor,
+    s_epoch: torch.Tensor,  # (B,) insertion epoch stamped on writes
+    s_minep: torch.Tensor,  # (B,) freshness floor (0 = no expiry)
+    leader: torch.Tensor,
+    seg_len: torch.Tensor,
+    clock,
+    seg_id: Optional[torch.Tensor] = None,  # (B,) sorted position -> segment
+) -> Tuple[torch.Tensor, ...]:
+    """The reference's vectorised rounds loop: round ``j`` applies every
+    segment's ``j``-th request to its evolving row (:func:`conflict_round`)
+    and records that request's write plan.  Returns ``(r_hi, r_lo, r_st,
+    r_ep, wrote, way)``: the resolved rows and, per sorted position,
+    whether it wrote and into which way.  ``seg_id`` (from
+    :func:`plan_segments`) is recomputed from ``leader`` and ``seg_len``
+    when omitted.  The kernels do this inside one launch; this function is
+    the reference's building block, on any device."""
+    b = rows_hi.shape[0]
+    dev = rows_hi.device
+    leader, seg_len = leader.to(torch.int64), seg_len.to(torch.int64)
+    if seg_id is None:
+        # positions covered by segment s are [leader[s], leader[s] + len[s])
+        starts = torch.zeros(b + 1, dtype=torch.int64, device=dev)
+        starts.index_add_(0, leader.clamp(max=b), (seg_len > 0).to(torch.int64))
+        seg_id = torch.cumsum(starts[:b], dim=0) - 1
+    seg_id = seg_id.to(torch.int64)
+    rank = torch.arange(b, device=dev) - leader[seg_id]
+    clock = torch.as_tensor(clock, device=dev).to(torch.int64)
+    r_hi, r_lo, r_st, r_ep = rows_hi, rows_lo, rows_st, rows_ep
+    wrote = torch.zeros(b, dtype=torch.bool, device=dev)
+    way_out = torch.zeros(b, dtype=torch.int32, device=dev)
+    for j in range(int(seg_len.max()) if b else 0):
+        idx = (leader + j).clamp(max=b - 1)
+        stamp = (clock + 1 + s_pos[idx].to(torch.int64)).to(torch.int32)  # int32 wrap
+        r_hi, r_lo, r_st, r_ep, _, way, _, refresh = conflict_round(
+            r_hi, r_lo, r_st, r_ep, s_hi[idx], s_lo[idx], s_admit[idx], s_static[idx],
+            s_epoch[idx], s_minep[idx], stamp, j < seg_len,
+        )
+        # position p's plan came from this round iff its rank in its segment is j
+        sel = rank == j
+        wrote = torch.where(sel, refresh[seg_id], wrote)
+        way_out = torch.where(sel, way[seg_id], way_out)
+    return r_hi, r_lo, r_st, r_ep, wrote, way_out
 
 
 def _defaults(b: int, dev, epochs, min_epoch):

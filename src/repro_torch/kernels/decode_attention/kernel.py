@@ -11,6 +11,12 @@ producer warp's bulk copies through a ring of ``mbarrier`` stages; in f32
 round f32 to TF32).  The dtype chooses; there is no switch.  The source
 says what bounds it on an H100 (bytes) and what the design does about it.
 
+With ``window_slice`` (the ``decode_window_slice`` lever on a local
+layer) the split is planned over the ``w = min(window_slice, S)`` keys of
+the window slice, not over S: each block computes the slice's start from
+``cur_len`` on the device and reads rows ``start + j`` (the batch stride
+stays S).  Without it every launch is as before.
+
 A tensor on the CPU runs the plain version
 (:func:`repro_torch.kernels.decode_attention.ref.decode_attention_plain`);
 a tensor on the card launches the kernel or raises.  :data:`launches`
@@ -72,7 +78,7 @@ _F = ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.library("decode_attention").decode_attention_launch
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I,
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P]
     fn.restype = _I
     return fn
@@ -125,7 +131,8 @@ def split_plan(pairs: int, s: int, slots: int, tile: int = TILE,
                block_cost: int = BLOCK_COST) -> Tuple[int, int]:
     """``(chunk, n_split)``: the keys each block sweeps (a multiple of
     ``tile``) and the blocks each of the ``pairs`` (batch, kv head)
-    pairs is split over.  With ``slots`` blocks resident at once, the run
+    pairs is split over, for ``s`` keys (the cache's S, or the window
+    slice's width).  With ``slots`` blocks resident at once, the run
     takes about (waves) x (tiles per block + ``block_cost`` for a block's
     start and its partial write): the split minimises that, the fewest
     blocks among equals.  Fixed by the shapes alone: the fill level
@@ -170,11 +177,13 @@ def decode_attention(
     scale: float,
     softcap: Optional[float] = None,
     window: Optional[int] = None,
+    window_slice: Optional[int] = None,
 ) -> torch.Tensor:
     """``(B, Hkv, G, d)`` in q's dtype: each query head's softmax-weighted
     sum of V over the positions ``pos <= cur_len`` (and ``pos > cur_len -
-    window``).  Launches on the current stream and does not synchronise:
-    ``cur_len`` is read on the device."""
+    window``); with ``window_slice``, over those of the window slice only
+    (module docstring).  Launches on the current stream and does not
+    synchronise: ``cur_len`` is read on the device."""
     global launches
     b, hkv, g, d, s = check_args(q, k, v)
     dev = q.device
@@ -182,8 +191,11 @@ def decode_attention(
         raise ValueError(f"softcap must be None or > 0, got {softcap}")
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
+    if window_slice is not None and (int(window_slice) < 1 or window is not None):
+        raise ValueError(f"window_slice must be >= 1 and come without a window, got "
+                         f"{window_slice} with window {window}")
     if dev.type == "cpu":
-        return decode_attention_plain(q, k, v, cur_len, scale, softcap, window)
+        return decode_attention_plain(q, k, v, cur_len, scale, softcap, window, window_slice)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     require(cur_len, "cur_len", torch.int32, (), dev)
@@ -204,7 +216,8 @@ def decode_attention(
         parts_per_split = TC_WARPS // h_slots
     with torch.cuda.device(dev):
         slots = _slots(index, g, d, dtype, stages, h_slots)
-    chunk, n_split = split_plan(b * hkv, s, slots, tile, cost)
+    slice_w = 0 if window_slice is None else min(int(window_slice), s)
+    chunk, n_split = split_plan(b * hkv, slice_w or s, slots, tile, cost)
     n_part = n_split * parts_per_split
     out = torch.empty_like(q)
     part_ml = torch.empty((b * hkv, n_part, 2, g), dtype=torch.float32, device=dev)
@@ -212,7 +225,7 @@ def decode_attention(
     with torch.cuda.device(dev):
         err = _entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), cur_len.data_ptr(),
-            b, s, hkv, g, d, float(scale), float(softcap or 0.0), int(window or 0),
+            b, s, hkv, g, d, float(scale), float(softcap or 0.0), int(window or 0), slice_w,
             dtype, chunk, n_split, stages, h_slots,
             part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,

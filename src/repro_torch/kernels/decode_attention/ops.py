@@ -27,17 +27,20 @@ def decode_attention_op(
     softcap: Optional[float] = None,
     window: Optional[int] = None,
     use_kernel: bool = True,
+    window_slice: Optional[int] = None,
 ) -> torch.Tensor:
     """q (B, Hkv, G, d), k and v (B, S, Hkv, d) -> (B, Hkv, G, d) in q's
     dtype.  Query head ``kv * G + g`` of a layer is ``q[:, kv, g]``.
 
     ``cur_len`` is the query position; on the card pass it as a 0-d int32
-    tensor on the device (an int is copied there first)."""
+    tensor on the device (an int is copied there first).  ``window_slice``
+    (with no ``window``) reads only the window slice of that many keys
+    that ends at ``cur_len`` (the ``decode_window_slice`` lever)."""
     if not use_kernel:
-        return decode_attention_plain(q, k, v, cur_len, scale, softcap, window)
+        return decode_attention_plain(q, k, v, cur_len, scale, softcap, window, window_slice)
     if not isinstance(cur_len, torch.Tensor) or cur_len.device != q.device:
         cur_len = torch.as_tensor(cur_len, dtype=torch.int32).to(q.device)
     return kernel.decode_attention(
         q.contiguous(), k.contiguous(), v.contiguous(), cur_len.to(torch.int32).reshape(()),
-        scale, softcap, window,
+        scale, softcap, window, window_slice,
     )

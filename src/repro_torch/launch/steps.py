@@ -1,12 +1,15 @@
-"""Step builders of the LM and recsys families: the port of
+"""Step builders of the LM, GNN and recsys families: the port of
 ``repro.launch.steps`` (``build_lm_step``, ``_lm_optimizer``,
-``_recsys_fns``, ``build_recsys_step``) on one device.
+``build_gnn_step``, ``_recsys_fns``, ``build_recsys_step``) on one device.
 
 :func:`build_lm_step` gives the LM's ``train`` (loss, gradients, AdamW or
 Adafactor as ``_lm_optimizer`` picks), ``prefill`` and ``decode`` steps with
-the reference's ``model_flops``.  For each recsys architecture, the
-training loss, the serve function (a batch of users or histories against
-one target each) and the retrieval function (one query against
+the reference's ``model_flops``.  :func:`build_gnn_step` gives PNA's serve
+step (``molecule``: padded molecules through ``forward_batched``) and its
+train steps (node classification with AdamW) on a seeded batch at the
+reference's padded sizes.  For each recsys architecture, the training
+loss, the serve function (a batch of users or histories against one
+target each) and the retrieval function (one query against
 ``n_candidates`` items), with makers of seeded batches of real ids at a
 shape's sizes.  The reference's makers build ``ShapeDtypeStruct``s for its
 dry-run; the port's draw data from a ``torch.Generator``:
@@ -14,12 +17,17 @@ dry-run; the port's draw data from a ``torch.Generator``:
 * ids are uniform over the table they index;
 * each multi-hot bag (two-tower's user and item features) has a length
   uniform in ``1 .. L``, its ids first and -1 pads after them;
-* histories (SASRec, DIN, MIND) are full; DIN's labels are 0 or 1.
+* histories (SASRec, DIN, MIND) are full; DIN's labels are 0 or 1;
+* graphs come from ``gnn.make_random_graph`` (and, for ``minibatch_lg``,
+  a block of ``gnn.NeighborSampler``), seeded from the generator; node
+  features are normals drawn by the generator on its device.
 
 A train step updates the parameters and the optimizer state in place
 (``repro_torch.train.optim``) and returns them with ``{"loss": loss}``.
 No mesh and no sharding: they wait with ``shardings.py`` and ``mesh.py``
-(ROADMAP.md, Queue 1 item 12).
+(ROADMAP.md, Queue 1 item 12), as do the reference's ``opts`` (perf
+levers; the LM's ``decode_window_slice`` is a config field, set with
+``dataclasses.replace``) and the GNN's ``dist_edges``.
 """
 from __future__ import annotations
 
@@ -27,11 +35,12 @@ import dataclasses
 import functools
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..configs.registry import Arch, ShapeSpec
 from ..core.device import resolve_device
-from ..models import recsys, transformer
+from ..models import gnn, recsys, transformer
 from ..models.common import tree_leaves, tree_map
 from ..train import optim
 
@@ -43,10 +52,12 @@ Batch = Dict[str, torch.Tensor]
 
 
 @dataclasses.dataclass
-class RecsysStep:
-    #: ``fn(batch)`` -> scores, or for ``train`` -> ``(params, opt_state,
-    #: {"loss": loss})``, updating both in place; two-tower's also takes
-    #: ``use_kernel``
+class BoundStep:
+    """A step bound to its parameters, with its seeded batch."""
+
+    #: ``fn(batch)`` -> outputs (scores, logits), or for ``train`` ->
+    #: ``(params, opt_state, {"loss": loss})``, updating both in place;
+    #: two-tower's also takes ``use_kernel``
     fn: Callable[..., Any]
     batch: Batch
     #: analytic model flops per call, the reference's
@@ -157,6 +168,151 @@ def build_lm_step(arch: Arch, shape: ShapeSpec, smoke: bool = False) -> LMStep:
         return LMStep(name, decode, cfg, gb, seq, 2.0 * cfg.active_param_count() * gb,
                       optimizer)
     raise ValueError(f"unknown step kind {shape.kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# GNN (PNA)
+# ---------------------------------------------------------------------------
+
+#: the reference pads node and edge counts to a multiple of this (one
+#: device: no "pod" axis)
+_GNN_PAD = 512
+#: smoke: the reference's padded sizes, and the real graph inside them, so
+#: the pad nodes and edges are exercised
+_SMOKE_PADDED = (64, 256)
+_SMOKE_GRAPH = (56, 240)
+#: smoke: seeds of the minibatch_lg block (the graph's 56 nodes and 240
+#: edges bound the block, so it fits the padded sizes)
+_SMOKE_SEEDS = 8
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _np_seed(gen: torch.Generator) -> int:
+    """A numpy seed drawn from ``gen`` (the host's graph draws follow it)."""
+    return int(torch.randint(0, 2**31 - 1, (), generator=gen, device=gen.device))
+
+
+def _features(gen: torch.Generator, shape, real: torch.Tensor) -> torch.Tensor:
+    """f32 normals of ``shape`` drawn on the generator's device, zero where
+    ``real`` (broadcast over the last axis) is False."""
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return x * real.to(x.device)[..., None]
+
+
+def _node_batch(gen, n: int, e: int, d_feat: int, edge_index: np.ndarray, labels: np.ndarray,
+                label_mask: np.ndarray) -> Batch:
+    """A train batch padded to ``n`` nodes and ``e`` edges: pad edges ``(0,
+    n)`` (source 0, destination the sink), pad nodes zero features, label 0,
+    mask 0."""
+    n_real, e_real = len(labels), edge_index.shape[1]
+    if n_real > n or e_real > e:
+        raise ValueError(f"a graph of {n_real} nodes and {e_real} edges exceeds the padded "
+                         f"{n} and {e}")
+    ei = np.zeros((2, e), np.int64)
+    ei[1] = n
+    ei[:, :e_real] = edge_index
+    lab = np.zeros(n, np.int64)
+    lab[:n_real] = labels
+    mask = np.zeros(n, np.float32)
+    mask[:n_real] = label_mask
+    real = torch.arange(n) < n_real
+    return {"x": _features(gen, (n, d_feat), real), "edge_index": torch.from_numpy(ei),
+            "labels": torch.from_numpy(lab), "label_mask": torch.from_numpy(mask)}
+
+
+def _molecule_batch(gen, b: int, n: int, e: int, d_feat: int) -> Batch:
+    """``b`` padded molecules: each has a node count uniform in ``n // 2 ..
+    n`` and an edge count uniform in its node count .. ``e``, the edges
+    uniform over its nodes; pad edges are ``(n, n)``, the reference's
+    self-loop sink, pad nodes have zero features and mask 0."""
+    rng = np.random.default_rng(_np_seed(gen))
+    n_real = rng.integers(n // 2, n + 1, size=b)
+    e_real = rng.integers(n_real, e + 1)
+    ei = (rng.random((b, 2, e)) * n_real[:, None, None]).astype(np.int64)
+    ei[np.broadcast_to(np.arange(e)[None, None, :] >= e_real[:, None, None], ei.shape)] = n
+    real = torch.from_numpy(np.arange(n)[None, :] < n_real[:, None])
+    return {"x": _features(gen, (b, n, d_feat), real), "edge_index": torch.from_numpy(ei),
+            "node_mask": real.to(torch.float32)}
+
+
+def gnn_batch(arch: Arch, shape: ShapeSpec, generator: torch.Generator,
+              smoke: bool = False) -> Batch:
+    """A seeded batch of PNA's ``shape`` at the reference's sizes (with
+    ``smoke``, its smoke sizes): ``molecule`` -> ``{"x", "edge_index",
+    "node_mask"}``; the train shapes -> ``{"x", "edge_index", "labels",
+    "label_mask"}`` padded to multiples of 512 (the reference's
+    ``_round_up``).  Full-graph shapes are one ``make_random_graph`` graph,
+    every node labelled; ``minibatch_lg`` is ``NeighborSampler``'s block of
+    the shape's fanouts from ``batch_nodes`` seeds of such a graph, only
+    the seeds labelled.  Features are drawn at ``cfg.d_in`` (as the
+    reference's), on the generator's device; the rest on the CPU."""
+    cfg = arch.smoke_config if smoke else arch.config
+    dims = shape.dims
+    if shape.name == "molecule":
+        b = 8 if smoke else dims["batch"]
+        return _molecule_batch(generator, b, dims["n_nodes"], dims["n_edges"], cfg.d_in)
+    if smoke:
+        (n, e), (n_g, e_g) = _SMOKE_PADDED, _SMOKE_GRAPH
+    elif shape.name == "minibatch_lg":
+        n, e = _round_up(dims["block_nodes"], _GNN_PAD), _round_up(dims["block_edges"], _GNN_PAD)
+        n_g, e_g = dims["n_nodes"], dims["n_edges"]
+    else:
+        n_g, e_g = dims["n_nodes"], dims["n_edges"]
+        n, e = _round_up(n_g, _GNN_PAD), _round_up(e_g, _GNN_PAD)
+    seed = _np_seed(generator)
+    graph = gnn.make_random_graph(n_g, e_g, 0, cfg.n_classes, seed=seed)
+    if shape.name != "minibatch_lg":
+        return _node_batch(generator, n, e, cfg.d_in, graph["edge_index"], graph["labels"],
+                           np.ones(n_g, np.float32))
+    n_seeds = _SMOKE_SEEDS if smoke else dims["batch_nodes"]
+    seeds = np.random.default_rng(seed + 1).choice(n_g, size=n_seeds, replace=False)
+    sampler = gnn.NeighborSampler(n_g, graph["edge_index"], seed=seed + 2)
+    nodes, ei, seed_pos = sampler.sample_block(seeds, (dims["fanout0"], dims["fanout1"]))
+    mask = np.zeros(len(nodes), np.float32)
+    mask[seed_pos] = 1.0
+    return _node_batch(generator, n, e, cfg.d_in, ei, graph["labels"][nodes], mask)
+
+
+def gnn_model_flops(cfg: gnn.PNAConfig, shape: ShapeSpec, batch: Batch) -> float:
+    """The reference's analytic flops of one call at ``batch``'s padded
+    sizes: per graph, the edge messages' ``E d_h^2`` and the nodes' update
+    ``N 13 d_h^2``, twice for multiply-add; a train step three times the
+    forward over ``n_layers`` layers."""
+    d = cfg.d_hidden
+    if shape.kind == "serve":
+        b, n, _ = batch["x"].shape
+        return 2.0 * b * (batch["edge_index"].shape[2] * d**2 + n * (13 * d) * d)
+    n, e = batch["x"].shape[0], batch["edge_index"].shape[1]
+    return 2.0 * cfg.n_layers * (e * d**2 + n * (13 * d) * d) * 3
+
+
+def build_gnn_step(arch: Arch, shape: ShapeSpec, params, generator: torch.Generator,
+                   device="cuda", smoke: bool = False) -> BoundStep:
+    """PNA's ``molecule`` serve step (``fn(batch)`` -> per-molecule logits
+    ``(B, n_classes)``) or a train step (``fn(batch)`` -> ``(params,
+    opt_state, {"loss": loss})``, AdamW with ``AdamWConfig()``) bound to
+    ``params``, with a batch from :func:`gnn_batch` on ``device``."""
+    dev = resolve_device(device)
+    if arch.family != "gnn":
+        raise ValueError(f"{arch.name} is not a GNN architecture")
+    cfg: gnn.PNAConfig = arch.smoke_config if smoke else arch.config
+    batch = {k: t.to(dev) for k, t in gnn_batch(arch, shape, generator, smoke).items()}
+    flops = gnn_model_flops(cfg, shape, batch)
+    if shape.kind == "serve":
+        def serve(params, batch):
+            return gnn.forward_batched(params, batch["x"], batch["edge_index"],
+                                       batch["node_mask"], cfg)
+
+        return BoundStep(functools.partial(serve, params), batch, model_flops=flops)
+    if shape.kind != "train":
+        raise ValueError(f"unknown step kind {shape.kind!r}")
+    opt_state = optim.init_opt_state(params)
+    step = _train_step(gnn.loss_fn, cfg, optim.apply_updates, optim.AdamWConfig())
+    return BoundStep(functools.partial(step, params, opt_state), batch, model_flops=flops,
+                     opt_state=opt_state)
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +460,7 @@ RECSYS_INIT = {
 
 
 def build_recsys_step(arch: Arch, shape: ShapeSpec, params, generator: torch.Generator,
-                      device="cuda", smoke: bool = False) -> RecsysStep:
+                      device="cuda", smoke: bool = False) -> BoundStep:
     """The ``train``, ``serve`` or ``retrieval`` step of ``arch`` at
     ``shape`` (batch 64 and 4096 candidates with ``smoke``, as the
     reference's smoke runs), bound to ``params`` (and for ``train`` to a
@@ -322,7 +478,7 @@ def build_recsys_step(arch: Arch, shape: ShapeSpec, params, generator: torch.Gen
         batch = {k: t.to(dev) for k, t in make_train(b, generator).items()}
         opt_state = optim.init_opt_state(params)
         step = _train_step(loss_fn, cfg, optim.apply_updates, optim.AdamWConfig())
-        return RecsysStep(functools.partial(step, params, opt_state), batch,
+        return BoundStep(functools.partial(step, params, opt_state), batch,
                           model_flops=6.0 * b * (2 * emb * 1024), opt_state=opt_state)
     if shape.kind == "serve":
         b = 64 if smoke else shape.dims["batch"]
@@ -333,4 +489,4 @@ def build_recsys_step(arch: Arch, shape: ShapeSpec, params, generator: torch.Gen
     else:
         raise ValueError(f"unknown step kind {shape.kind!r}")
     batch = {k: t.to(dev) for k, t in batch.items()}
-    return RecsysStep(functools.partial(fn, params), batch, model_flops=flops)
+    return BoundStep(functools.partial(fn, params), batch, model_flops=flops)

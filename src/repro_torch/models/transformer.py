@@ -18,7 +18,11 @@ Serving: :func:`forward`, :func:`prefill`, :func:`init_cache` and
 :func:`repro_torch.kernels.decode_attention.decode_attention_op` (the CUDA
 kernel on the card) on layer i's ``(B, S, Hkv, d)`` cache slice; the cache
 is updated in place, and its fill level ``len`` is a 0-d int32 tensor on
-the device, so a decode step makes no host sync.
+the device, so a decode step makes no host sync.  With the
+``decode_window_slice`` lever a local layer attends only over its window
+slice, as the reference's: the kernel's window-slice mode plans its split
+over the window's keys and finds the slice's start from ``len`` on the
+device.
 
 Training: :func:`loss_fn` is ``forward`` then the shifted token
 cross-entropy, differentiable with respect to every parameter.  Each
@@ -31,10 +35,9 @@ policy=nothing_saveable)``.  Attention in training is the plain chunked
 :func:`_attend` (f32 scores and weights), as in the reference, where it is
 plain XLA: no Pallas kernel computes it.
 
-Not ported yet, and raising ``NotImplementedError``: MoE layers, the
-sequence-parallel residual (``act_seq_axis``) and the
-``decode_window_slice`` lever.  ``kv_quant`` is a field the reference
-declares and never reads; the port does the same.
+Not ported yet, and raising ``NotImplementedError``: MoE layers and the
+sequence-parallel residual (``act_seq_axis``).  ``kv_quant`` is a field the
+reference declares and never reads; the port does the same.
 """
 from __future__ import annotations
 
@@ -387,20 +390,23 @@ def layer_forward(
     (caches given) x is (B, 1, D); the new K/V are written into the caches
     in place at ``cache_len``, clamped to the last slot as the reference's
     ``dynamic_update_slice`` clamps, and the attention is
-    ``decode_attention_op`` over the whole (B, S, Hkv, d) buffer."""
+    ``decode_attention_op`` over the whole (B, S, Hkv, d) buffer, or with
+    ``cfg.decode_window_slice`` on a local layer over the slice of
+    ``min(window, S)`` keys that ends at ``cache_len`` (the window mask
+    then holds by construction, as in the reference)."""
     h = rmsnorm(layer["pre_attn_norm"]["scale"], x, cfg.norm_eps)
     q, k, v = _qkv(layer, h, cfg, positions)
     if k_cache is None:
         attn = _attend(q, k, v, cfg, positions, is_local)
         return _finish(layer, x, attn, cfg), torch.zeros((), device=x.device), None
-    if cfg.decode_window_slice:
-        raise _not_ported("the decode_window_slice lever")
     slot = cache_len.clamp(0, k_cache.shape[1] - 1).long().reshape(1)
     k_cache.index_copy_(1, slot, k)
     v_cache.index_copy_(1, slot, v)
+    sliced = cfg.decode_window_slice and is_local
     attn = decode_attention_op(
         q[:, 0], k_cache, v_cache, cache_len, _scale(cfg), cfg.attn_logit_softcap,
-        cfg.window if is_local else None, use_kernel=use_kernel,
+        cfg.window if is_local and not sliced else None, use_kernel=use_kernel,
+        window_slice=cfg.window if sliced else None,
     )
     return _finish(layer, x, attn, cfg), torch.zeros((), device=x.device), (k_cache, v_cache)
 

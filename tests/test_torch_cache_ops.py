@@ -476,3 +476,59 @@ def test_entry_points_raise_without_a_card():
         tdc.STDDeviceCache(cfg)  # default device is "cuda"
     with pytest.raises(RuntimeError):
         tdc.state_from_numpy({}, "cuda")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_numpy_oracles_equal_the_references(kind):
+    """``probe_and_commit_ref`` and ``serve_fused_ref``, the port's copies
+    of the JAX package's numpy oracles, give the reference's outputs array
+    for array (tolerance 0), with and without a fill plan and epochs."""
+    c = make_case(kind, seed=7)
+    args = (c["key_hi"], c["key_lo"], c["stamp"], c["h_hi"], c["h_lo"], c["set_idx"],
+            c["admit"], c["static_hit"], int(c["clock"]))
+    fresh = dict(epoch=c["epoch"], epochs=c["epochs"], min_epoch=c["min_epoch"])
+    fill = dict(f_set_idx=c["f_set"], f_wrote=c["f_wrote"], f_way=c["f_way"],
+                f_values=c["f_values"])
+    pairs = [
+        (jops.probe_and_commit_ref(*args), tops.probe_and_commit_ref(*args)),
+        (jops.probe_and_commit_ref(*args, **fresh), tops.probe_and_commit_ref(*args, **fresh)),
+        (jops.serve_fused_ref(*args[:3], c["value"], *args[3:], **fresh, **fill),
+         tops.serve_fused_ref(*args[:3], c["value"], *args[3:], **fresh, **fill)),
+        (jops.serve_fused_ref(*args[:3], c["value"], *args[3:]),
+         tops.serve_fused_ref(*args[:3], c["value"], *args[3:])),
+    ]
+    for want, got in pairs:
+        assert want.keys() == got.keys()
+        for k, w in want.items():
+            assert w.dtype == got[k].dtype and np.array_equal(w, got[k]), k
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("with_seg_id", [True, False])
+def test_resolve_conflicts_equals_the_references(kind, with_seg_id):
+    """The vectorised rounds loop on one planned batch: resolved rows and
+    the write plan equal the JAX ``resolve_conflicts``'s, with ``seg_id``
+    given and recomputed from ``leader``/``seg_len``."""
+    c = make_case(kind, seed=8)
+    if kind == "dups":
+        c["set_idx"][:40] = 1  # one deep segment
+    order, seg_id, leader, seg_len, seg_set = (np.array(x) for x in jops.plan_segments(
+        jnp.asarray(c["set_idx"])))
+    rows = np.minimum(seg_set, c["key_hi"].shape[0] - 1)
+    fields = [c["key_hi"][rows], c["key_lo"][rows], c["stamp"][rows], c["epoch"][rows]]
+    sorted_ = [c["h_hi"][order], c["h_lo"][order], order.astype(np.int32), c["admit"][order],
+               c["static_hit"][order], c["epochs"][order], c["min_epoch"][order]]
+    extra = lambda sid: {"seg_id": sid} if with_seg_id else {}  # noqa: E731
+    want = jops.resolve_conflicts(
+        *(jnp.asarray(x) for x in fields + sorted_), jnp.asarray(leader), jnp.asarray(seg_len),
+        jnp.asarray(c["clock"]), **extra(jnp.asarray(seg_id)))
+    got = tops.resolve_conflicts(
+        *(t32(x) for x in fields), *(t32(x) for x in sorted_[:3]),
+        *(torch.from_numpy(x) for x in sorted_[3:5]), *(t32(x) for x in sorted_[5:]),
+        torch.from_numpy(leader), torch.from_numpy(seg_len), torch.tensor(c["clock"]),
+        **extra(torch.from_numpy(seg_id)))
+    assert int(seg_len.max()) > 1
+    for name, w, g in zip(("hi", "lo", "stamp", "epoch", "wrote", "way"), want, got):
+        w = np.asarray(w)
+        g = u32(g) if w.dtype == np.uint32 else g.numpy()
+        assert w.shape == g.shape and np.array_equal(w.astype(np.int64), g.astype(np.int64)), name

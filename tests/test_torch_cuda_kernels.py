@@ -773,6 +773,31 @@ def test_decode_attention_kernel_reads_only_the_filled_cache(cuda):
         assert torch.equal(o1, o2)
 
 
+@pytest.mark.parametrize("b,hkv,g,d,s,w,cap", [
+    (2, 16, 2, 128, 8200, 4096, 50.0),  # gemma2-27b's geometry, window 4096
+    (1, 1, 8, 256, 2081, 512, None),
+    (3, 2, 4, 64, 777, 100, 30.0),
+    (2, 2, 16, 128, 300, 1024, None),  # a window past S: the whole cache
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_window_slice_on_the_card(cuda, b, hkv, g, d, s, w, cap, dtype):
+    """The window-slice mode (the decode_window_slice lever): the split
+    planned over the window's keys, the slice's start found from cur on
+    the card; against the plain version's mode, at fill levels before,
+    at and past the window, at the cache's last slot and past it."""
+    q, k, v = (x.to(cuda) for x in _decode_case(s + w, b, hkv, g, d, s, dtype))
+    for cur in sorted({0, 1, w - 1, w, w + 1, s // 2, s - 1, s, s + 5}):
+        cur_t = torch.tensor(cur, dtype=torch.int32, device=cuda)
+        before = da_kernel.launches
+        got = decode_attention_op(q, k, v, cur_t, d**-0.5, cap, window_slice=w)
+        torch.cuda.synchronize()
+        assert da_kernel.launches == before + 1
+        want = decode_attention_plain(q, k, v, cur_t, d**-0.5, cap, window_slice=w)
+        _assert_decode_close(got, want)
+        if cur < s:  # the same keys as the full read with the window
+            _assert_decode_close(got, decode_attention_plain(q, k, v, cur_t, d**-0.5, cap, w))
+
+
 @pytest.mark.parametrize("cur,win", [(40, None), (40, 4), (40, 20), (-3, None), (31, 1)])
 def test_decode_attention_kernel_clamps_like_the_reference(cuda, cur, win):
     """cur >= S (every slot valid; with a window past the cache none, and

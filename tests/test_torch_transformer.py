@@ -240,14 +240,17 @@ def test_lm_configs_equal_the_jax_registrys(name):
 
 
 def test_other_families_are_named_but_not_ported():
-    from repro_torch.configs import gemma_2b
+    """Every architecture of the JAX registry is in the port's (the GNN
+    family since it was ported), and each served dense LM and PNA has its
+    config module."""
+    from repro_torch.configs import gemma2_27b, gemma_2b, glm4_9b, pna
 
-    assert gemma_2b.CONFIG == treg.GEMMA_2B.config and set(gemma_2b.SHAPES) == {
-        s.name for s in jreg.LM_SHAPES}
-    assert set(treg.ARCHS) | set(treg.NOT_PORTED) == set(jreg.ARCHS)
-    for name in treg.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            treg.get_arch(name)
+    for mod, arch in ((gemma_2b, treg.GEMMA_2B), (gemma2_27b, treg.GEMMA2_27B),
+                      (glm4_9b, treg.GLM4_9B)):
+        assert mod.CONFIG == arch.config and mod.SMOKE_CONFIG == arch.smoke_config
+        assert set(mod.SHAPES) == {s.name for s in jreg.LM_SHAPES}
+    assert pna.ARCH is treg.PNA and set(pna.SHAPES) == {s.name for s in jreg.PNA.shapes}
+    assert set(treg.ARCHS) == set(jreg.ARCHS)
     with pytest.raises(KeyError):
         treg.get_arch("gpt-5")
 
@@ -285,9 +288,12 @@ def test_what_is_not_ported_raises():
         ttf.init_params(torch.Generator(), moe)
     with pytest.raises(NotImplementedError, match="_constrain_residual"):
         ttf.forward(tp, tok, dc.replace(tcfg, act_seq_axis="data"))
+    # the decode_window_slice lever is ported (tests/test_torch_window_slice.py):
+    # on a model without local layers it changes nothing
     _, cache = ttf.prefill(tp, tok, tcfg, max_len=6)
-    with pytest.raises(NotImplementedError, match="decode_window_slice"):
-        ttf.decode_step(tp, cache, tok[:, :1], dc.replace(tcfg, decode_window_slice=True))
+    lever = ttf.decode_step(tp, {k: v.clone() for k, v in cache.items()}, tok[:, :1],
+                            dc.replace(tcfg, decode_window_slice=True))[0]
+    assert torch.equal(lever, ttf.decode_step(tp, cache, tok[:, :1], tcfg)[0])
     # training is ported (tests/test_torch_train.py); MoE's loss still raises
     with pytest.raises(NotImplementedError, match="MoE"):
         ttf.loss_fn(tp, {"tokens": tok}, moe)
