@@ -148,7 +148,34 @@ Phases (any failure raises and exits non-zero):
    steps with the plain attention with every layer call also through the
    kernel (one bf16 ulp), ms per step and the idle share, and the kernel on
    layer 0's real call: gemma2-27b's window slice beside its full read with
-   the window and its byte bound, glm4-9b's beside its bound;
+   the window, its byte bound and ``scaled_dot_product_attention``'s time
+   (over the window's keys, without the softcap SDPA lacks), glm4-9b's
+   beside its bound and SDPA's.  Then the MoE LMs (phase lm/moe), each at
+   full published width with its depth cut (``LM_MOE``) and freed before
+   the next: llama4-scout (8 of 48 layers: d 5120, 40 query heads over 8
+   KV heads of 128, 16 experts top-1 of d_ff 8192 plus an 8192 shared
+   expert, 202,048 words; 19.7B bf16 parameters) and arctic (2 of 35
+   layers: d 7168, 56 over 8 heads, 128 experts top-2 of d_ff 4864 plus a
+   4864 dense residual; 27.7B), each at batch 16 over decode_32k's 32768
+   positions (the KV cache drawn from the generator), the parameter count
+   held to ``param_count()`` at that depth: ``LM_MOE_STEPS`` greedy steps
+   through the kernel (one launch a layer a step, checked), every layer
+   call of the first steps with the plain attention also through the
+   kernel (one bf16 ulp), ms per step, the idle share and the kernel on
+   layer 0's call beside its bound, plain and SDPA; layer 0's MoE call of
+   step 0 against a float64 router (expert choices equal but for near-ties
+   of the f32 logits) and a float64 evaluation of its routed experts
+   within the bf16 path's rounding chain (``moe_float64``), the slots its
+   capacity dropped, and the same call through ``impl="ragged"`` and at a
+   roomy capacity factor held to the float64 evaluation without drops;
+   llama4-scout's prefill of one ``LM_MOE_PREFILL``-token prompt; then
+   llama4-scout at train_4k's width cut to ``LM_MOE_TRAIN_LAYERS`` layer
+   (one sequence of 4096, remat, Adafactor; ms per step, MFU, peak, idle
+   share), both archs' smoke configs trained on the card and on the CPU
+   (losses within ``TRAIN_SMOKE_RTOL``), and the serving CLI with
+   llama4-scout's smoke config behind the cache, on the card (its back
+   end's CUDA graph replays counted) and on the CPU: both return 0 with
+   the same hit-rate line;
 9. train: training on the card (``repro_torch.launch.steps.build_lm_step``
    and ``build_recsys_step``'s train kinds, AdamW).  gemma-2b at full
    published width at train_4k (seq_len 4096, remat, 2.51B bf16 parameters
@@ -242,7 +269,7 @@ The last three lines are one JSON object ``{"kernels": [...]}`` (each
 cache kernel's ``launches`` summed over the serve, broker and cluster
 phases, ``topic_score``'s over the topics and cluster phases,
 ``embedding_bag``'s over the train and recsys phases, ``decode_attention``'s
-over gemma-2b's and the windowed LMs' decode runs, each counted
+over gemma-2b's, the windowed LMs' and the MoE LMs' decode runs, each counted
 from 0 just before its path; ``probe_and_commit``'s row also carries the
 migration launch's times and the hash reshard's), the
 card's name and power limit as ``nvidia-smi`` gives them, and
@@ -366,6 +393,41 @@ LM_WIDE_PROFILE = 2
 #: control is printed beside it)
 LM_WIDE_LEVER_RTOL = 2.0**-6
 LM_WIDE_SPREAD = 2.0
+#: phase lm/moe: the MoE LMs at full published width with their depth cut
+#: (neither fits one card: llama4-scout's 48 layers are ~215 GB of bf16
+#: weights, arctic's 35 ~954 GB), each at decode_32k's 32768 positions
+#: with the batch cut from 128: (arch, layers, batch).  llama4-scout at 8
+#: layers is 39.4 GB of weights and its KV cache 1.07 GB a sequence;
+#: arctic at 2 layers 55.4 GB and 0.27 GB a sequence
+LM_MOE = (("llama4-scout-17b-a16e", 8, 16), ("arctic-480b", 2, 16))
+#: their parameters at that depth: the registry's analytic count plus the
+#: final norm
+LM_MOE_PARAMS = {"llama4-scout-17b-a16e": 19_685_785_600 + 5120,
+                 "arctic-480b": 27_681_124_352 + 7168}
+LM_MOE_STEPS = 16
+#: the MoE check's rounding chain (moe_float64): a sum of n independent
+#: roundings held to this many times its root-sum-square.  The max over a
+#: call's ~10^5 outputs of a normal sum is ~4.4 of its sd, and a rounding's
+#: sd is 0.29 of its bound, so the errors should reach ~0.2-0.3 of the
+#: bound (0.32 in a CPU trial of one expert at llama4-scout's width)
+MOE_LAMBDA = 6.0
+LM_MOE_PLAIN_STEPS = 2
+LM_MOE_PROFILE = 2
+#: llama4-scout's prefill: one prompt of this many tokens (prefill_32k's
+#: 32 x 32768 cut)
+LM_MOE_PREFILL = 8192
+#: llama4-scout's train step at train_4k's width: one sequence of 4096,
+#: remat, Adafactor; its depth cut to this.  Adafactor keeps ~6 f32
+#: temporaries of a leaf alive, and a layer's stacked expert ``wi`` is 5.4 GB
+#: in f32 a layer, so two layers (12.9 GB of bf16 weights, as many
+#: gradients, ~64 GB of temporaries) would not fit 80 GB
+LM_MOE_TRAIN_LAYERS = 1
+LM_MOE_TRAIN_STEPS = 3
+#: both archs' smoke configs (f32): this many train steps on the card and on
+#: the CPU from the same weights, the losses within TRAIN_SMOKE_RTOL
+LM_MOE_SMOKE_STEPS = 3
+#: the serving CLI with an MoE back end, on the card and on the CPU
+LM_MOE_CLI = ("--arch", "llama4-scout-17b-a16e", "--requests", "20000", "--entries", "1024")
 #: phase gnn: PNA at its full config (4 layers, width 75, d_in 1433, 64
 #: classes, f32) on its four shapes.  molecule (serve) timed over
 #: GNN_SERVE_RUNS batches of 128; full_graph_sm GNN_TRAIN_STEPS AdamW steps;
@@ -2196,10 +2258,15 @@ def wide_lm(device, name: str, batch: int, flush) -> dict:
                                                                      win), 5, flush, noop))
         kind = f"{out['full_ms']:.6f} ms, plain {out['plain_ms']:.6f} ms"
     out["bound_ms"] = nb / HBM_BYTES_PER_S * 1e3
+    out["library_ms"], n_keys, lib_err = library_decode_ms(q, k, v, cur, scale,
+                                                           cfg.window if local else win, flush)
     b_, hkv, g, d = q.shape
     print(f"lm/{name}/kernel: layer 0's call (B={b_} Hkv={hkv} G={g} d={d} S={k.shape[1]} "
           f"cur={int(cur)}, {q.dtype}): device {kind} (L2 flushed); byte bound "
-          f"{out['bound_ms']:.6f} ms ({nb / 1e9:.6f} GB); peak "
+          f"{out['bound_ms']:.6f} ms ({nb / 1e9:.6f} GB); scaled_dot_product_attention "
+          f"(enable_gqa, the {n_keys} kept keys copied out before timing"
+          f"{', no softcap' if cap_ else ''}; max abs diff to plain "
+          f"{lib_err:.3e}) {out['library_ms']:.6f} ms; peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated in this model's run")
     out.update(step_ms=full_s * 1e3, lever_ms=lever_s * 1e3 if local else None)
     del params, cache, cap, q, k, v
@@ -2216,6 +2283,398 @@ def phase_lm_windowed(device):
         gc.collect()
         torch.cuda.empty_cache()
     del flush
+    return out
+
+
+def moe_kept(experts, cfg):
+    """``(kept (T, k) bool, capacity)``: which slots of an MoE call the
+    capacity implementation keeps (the reference's
+    ``_capacity_grouped_ffn``: a slot counts when it lies in its own
+    expert's window of ``cap`` slots, the window starting at its group's
+    start clamped to ``T*k - cap``)."""
+    from repro_torch.models import transformer as tf
+
+    flat = experts.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(len(order), device=order.device)
+    sizes = tf._group_sizes(flat, cfg.moe.n_experts)
+    tk = len(flat)
+    cap = tf._capacity(cfg.moe, tk, cfg.moe.n_experts)
+    start = (torch.cumsum(sizes, 0) - sizes).clamp(max=tk - cap)
+    return (pos - start[flat] < cap).reshape(experts.shape), cap
+
+
+def moe_float64(x, moe_p, experts, weights, kept, cfg):
+    """The routed experts of an MoE call in float64 on the card: ``(out,
+    bound)``, out (T, D) the sum over the kept slots of weight times the
+    expert's FFN of the token, and bound the first-order rounding chain of
+    the bf16 path per element (u = 2**-9, a bf16 rounding):
+
+    * gate and up, ``h = x @ wi``: rounded to bf16, u |h|, after an f32 sum
+      of D products;
+    * ``p = silu(gate) * up``: the activation (|silu'| <= 1.1) and the
+      product each add u of their value;
+    * ``y = p @ wo``: the F errors of p, independent roundings, sum to at
+      most MOE_LAMBDA times their root-sum-square (probabilistic rounding
+      analysis), plus y's own rounding u |y|; each f32 sum of n products
+      adds MOE_LAMBDA sqrt(n) 2**-24 of its terms' root-sum-square;
+    * the weight's and the weighted product's roundings add 2u |w y|, the
+      sum over the k choices u |out|."""
+    f, d = cfg.moe.d_ff, cfg.d_model
+    u, lam = 2.0**-9, MOE_LAMBDA
+    x64 = x.double()
+    out = torch.zeros_like(x64)
+    err = torch.zeros_like(x64)
+    for e in torch.unique(experts).tolist():
+        tok, j = torch.nonzero((experts == e) & kept, as_tuple=True)
+        if not len(tok):
+            continue
+        wi = moe_p["wi"][e].double().reshape(-1, 2 * f)
+        wo = moe_p["wo"][e].double()
+        xs = x64[tok]
+        h = xs @ wi
+        dh = u * h.abs() + lam * d**0.5 * 2.0**-24 * ((xs * xs) @ (wi * wi)).sqrt()
+        g, up, dg, dup = h[:, :f], h[:, f:], dh[:, :f], dh[:, f:]
+        a = torch.nn.functional.silu(g)
+        pr = a * up
+        dp = up.abs() * (1.1 * dg + u * a.abs()) + a.abs() * dup + u * pr.abs()
+        y = pr @ wo
+        dy = (lam * ((dp * dp) @ (wo * wo)).sqrt() + u * y.abs()
+              + lam * f**0.5 * 2.0**-24 * ((pr * pr) @ (wo * wo)).sqrt())
+        w = weights[tok, j].double()[:, None]
+        out.index_add_(0, tok, w * y)
+        err.index_add_(0, tok, w.abs() * (dy + 2 * u * y.abs()))
+    return out, err + u * out.abs()
+
+
+@contextlib.contextmanager
+def f32_reductions():
+    """bf16 matrix products accumulate in f32 within the block (cuBLAS may
+    otherwise reduce split sums in bf16): the rounding chain's premise."""
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+
+
+def moe_check(moe_args, cfg) -> dict:
+    """Layer 0's MoE call of the first decode step: its expert choices
+    against a float64 router on the card, its output against the float64
+    evaluation of the experts it routed to (``moe_float64``), the slots the
+    capacity dropped, and the same call through ``impl="ragged"`` and the
+    capacity path at a roomy capacity factor (no drops), each held to the
+    float64 evaluation of every slot."""
+    from repro_torch.models import transformer as tf
+
+    moe_p, x, _ = moe_args
+    m = cfg.moe
+    probs, weights, experts = tf._route(x, moe_p["router"], cfg)
+    logits32 = x.float() @ moe_p["router"].float()
+    logits64 = x.double() @ moe_p["router"].double()
+    ref_experts = tf.top_k_ids(logits64, m.top_k)
+    # a choice may differ from float64's only where f32's rounding of the
+    # logits can reorder them: a float64 gap within twice f32's largest error
+    err32 = float((logits32.double() - logits64).abs().max())
+    ours = logits64.gather(1, experts)
+    theirs = logits64.gather(1, ref_experts)
+    differ = experts != ref_experts
+    near = differ & ((ours - theirs).abs() <= 2 * err32)
+    check(bool((differ == near).all()), "MoE expert choices differ from the float64 router's "
+          "beyond f32's rounding of the logits")
+    kept, cap = moe_kept(experts, cfg)
+    with f32_reductions():
+        out, _ = tf._moe_ffn(moe_p, x, cfg)
+    out64, bound = moe_float64(x, moe_p, experts, weights, kept, cfg)
+    ratio = float(((out.double() - out64).abs() / (bound + 1e-30)).max())
+    check(ratio <= 1.0, f"the MoE call is {ratio} of its rounding bound from float64")
+    every = torch.ones_like(kept)
+    all64, all_bound = moe_float64(x, moe_p, experts, weights, every, cfg)
+    roomy_cf = float(m.n_experts)  # the window holds every slot
+    res = {}
+    for label, run_m in (("ragged", dataclasses.replace(m, impl="ragged")),
+                         ("capacity, roomy", dataclasses.replace(m, capacity_factor=roomy_cf))):
+        with f32_reductions():
+            got, _ = tf._moe_ffn(moe_p, x, dataclasses.replace(cfg, moe=run_m))
+        res[label] = float(((got.double() - all64).abs() / (all_bound + 1e-30)).max())
+        check(res[label] <= 1.0, f"the MoE call through {label} is {res[label]} of its bound")
+    roomy_kept, _ = moe_kept(experts, dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=roomy_cf)))
+    check(bool(roomy_kept.all()), "the roomy capacity drops nothing")
+    dropped = int((~kept).sum())
+    print(f"  layer 0's MoE call (T={x.shape[0]}, E={m.n_experts}, top-{m.top_k}, capacity "
+          f"{cap} of {experts.numel()} slots): expert choices equal the float64 router's on "
+          f"{int((~differ).sum())} of {experts.numel()} ({int(near.sum())} near-ties, f32 logits "
+          f"within {err32:.3e}); {dropped} of {experts.numel()} slots dropped by the capacity; "
+          f"output within {ratio:.4f} of its rounding bound from the float64 evaluation of its "
+          f"routed experts (largest |out| {float(out64.abs().max()):.4e}); impl=\"ragged\" "
+          f"{res['ragged']:.4f} and the capacity path at capacity factor {roomy_cf:g} "
+          f"{res['capacity, roomy']:.4f} of the bound from float64 with no drops")
+    return dict(dropped=dropped, slots=experts.numel(), ratio=ratio, ragged=res["ragged"])
+
+
+def moe_decode(device, name: str, layers: int, batch: int, flush) -> dict:
+    """One MoE LM at full width cut to ``layers``: greedy decode through the
+    decode_attention kernel, every layer call of the first steps held to
+    the plain version, layer 0's MoE call checked (``moe_check``), ms per
+    step and the idle share, the kernel's time on layer 0's call; for
+    llama4-scout a prefill."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    from repro_torch.models import transformer as tf
+
+    arch = get_arch(name)
+    full = arch.config
+    cfg = dataclasses.replace(full, n_layers=layers)
+    m = cfg.moe
+    dec = arch.shape("decode_32k").dims
+    gen = torch.Generator(device=device).manual_seed(SEED + 61)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(gen, cfg)
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == cfg.param_count() + cfg.d_model == LM_MOE_PARAMS[name],
+          f"{name}'s parameter count {n_params} at {layers} layers")
+    cache = tf.init_cache(cfg, batch, LM_SEQ, device=device)
+    cache["k"].normal_(generator=gen)
+    cache["v"].normal_(generator=gen)
+    first = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kv_gb = 2 * cache["k"].numel() * cache["k"].element_size() / 1e9
+    print(f"lm/{name}/model: at full width (configs/registry.py), depth {full.n_layers} cut to "
+          f"{layers} layers: d {cfg.d_model}, {cfg.n_heads} query heads over {cfg.n_kv_heads} KV "
+          f"heads of {cfg.head_dim}, {m.n_experts} experts top-{m.top_k} of d_ff {m.d_ff} plus "
+          f"a dense {m.dense_residual_ff}, vocabulary {cfg.vocab_size}, {cfg.dtype}; {n_params} "
+          f"parameters ({n_params * 2 / 1e9:.3f} GB; {full.param_count()} at full depth, "
+          f"{full.param_count() * 2 / 1e9:.1f} GB) from a seeded generator on the card; KV "
+          f"cache {batch} x {LM_SEQ} ({kv_gb:.3f} GB, drawn from the generator; decode_32k's "
+          f"batch {dec['global_batch']}); set up in {setup_s:.3f} s")
+    start = LM_SEQ - LM_MOE_STEPS
+
+    # the main path: greedy decode through the kernel, the counts from 0
+    dak.launches = 0
+    with Capture(tf, "_moe_ffn", 0) as moe_cap, Capture(tf, "decode_attention_op", 0) as cap:
+        path, tokens, step_s = wide_decode(params, cache, cfg, first, start, LM_MOE_STEPS)
+    launches = dak.launches
+    check(launches == layers * LM_MOE_STEPS,
+          f"{name}: decode_attention launches {launches} == {layers} x {LM_MOE_STEPS}")
+    check(all(bool(torch.isfinite(x).all()) for x in path), f"{name}: logits are finite")
+    # the capacity path reads every expert's weights a step
+    expert_gb = layers * 3 * m.n_experts * cfg.d_model * m.d_ff * 2 / 1e9
+    print(f"lm/{name}/decode: {LM_MOE_STEPS} greedy steps x batch {batch} from {start} to "
+          f"{LM_SEQ} cached positions: {step_s * 1e3:.3f} ms/step (host clock, synchronised), "
+          f"{batch / step_s:.1f} tokens/s; decode_attention launches {launches}; the experts' "
+          f"{expert_gb:.3f} GB read a step take >= {expert_gb / HBM_BYTES_PER_S * 1e12:.3f} ms "
+          f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    moe = moe_check(moe_cap.args, cfg)
+
+    compare, tally = plain_comparison()
+    with patched(tf, "decode_attention_op", compare):
+        plain, _, _ = wide_decode(params, cache, cfg, first, start, LM_MOE_PLAIN_STEPS,
+                                  forced=tokens, use_kernel=False)
+    check(tally["n"] == layers * LM_MOE_PLAIN_STEPS, f"{name}: every layer call compared")
+    spread = logits_apart(plain, path)
+    print(f"lm/{name}/plain: {LM_MOE_PLAIN_STEPS} teacher-forced steps with the plain decode "
+          f"attention: each of their {tally['n']} layer calls through the kernel on the same "
+          f"inputs: max abs err {tally['err']:.3e}, {tally['ratio']:.4f} of the bound (one bf16 "
+          f"ulp + {DECODE_BF16_ATOL} of the largest output; smallest output RMS "
+          f"{tally['rms']:.3e}); logits {spread[0]:.6f} of the row's largest |logit| from the "
+          f"kernel path's (a one-ulp change of an attention output can move a token to another "
+          f"expert), greedy tokens differ on {spread[1]} of {LM_MOE_PLAIN_STEPS * batch}")
+    check(tally["ok"], f"{name}: decode_attention != plain on a layer call "
+          f"({tally['ratio']:.4f} of the bound)")
+    print(f"lm/{name}/profile: " + lm_profile(params, cache, cfg, tokens, step_s, start=start,
+                                               n=LM_MOE_PROFILE))
+
+    # the kernel on layer 0's real call (step 0), beside its bound and the library
+    q, k, v, cur, scale, cap_, win = cap.args
+    noop = lambda: None  # noqa: E731
+    nb = decode_bytes(q, k, int(cur), win)
+    out = dict(launches=launches, step_ms=step_s * 1e3, bound_ms=nb / HBM_BYTES_PER_S * 1e3,
+               moe=moe,
+               ms=time_device(lambda: dak.decode_attention(q, k, v, cur, scale, cap_, win), 20,
+                              flush, noop),
+               plain_ms=time_host(lambda: decode_attention_plain(q, k, v, cur, scale, cap_, win),
+                                  5, flush, noop))
+    out["library_ms"], n_keys, lib_err = library_decode_ms(q, k, v, cur, scale, win, flush)
+    b_, hkv, g, d = q.shape
+    print(f"lm/{name}/kernel: layer 0's call (B={b_} Hkv={hkv} G={g} d={d} S={k.shape[1]} "
+          f"cur={int(cur)}, {q.dtype}): device {out['ms']:.6f} ms (L2 flushed), plain "
+          f"{out['plain_ms']:.6f} ms, scaled_dot_product_attention (enable_gqa, {n_keys} keys "
+          f"copied out before timing; max abs diff to plain {lib_err:.3e}) "
+          f"{out['library_ms']:.6f} ms; byte bound {out['bound_ms']:.6f} ms "
+          f"({nb / 1e9:.6f} GB)")
+    del cap, q, k, v, moe_cap
+
+    if name == "llama4-scout-17b-a16e":  # one long prompt
+        tok = torch.from_numpy(np.random.default_rng(SEED + 62).integers(
+            0, cfg.vocab_size, size=(1, LM_MOE_PREFILL), dtype=np.int64)).to(device)
+        with torch.no_grad(), tf32():
+            tf.prefill(params, tok[:, :1024], cfg)  # the first call sets up the kernels
+            (logits, pc), pre_s = timed(lambda: tf.prefill(params, tok, cfg))
+        check(bool(torch.isfinite(logits).all()) and int(pc["len"]) == LM_MOE_PREFILL,
+              f"{name}: prefill logits finite, the cache filled")
+        print(f"lm/{name}/prefill: 1 prompt x {LM_MOE_PREFILL} tokens (prefill_32k's "
+              f"{arch.shape('prefill_32k').dims['global_batch']} x "
+              f"{arch.shape('prefill_32k').dims['seq_len']} cut), plain chunked attention "
+              f"(TF32 score products), the capacity MoE: {pre_s:.3f} s, "
+              f"{LM_MOE_PREFILL / pre_s:.1f} tokens/s")
+        out["prefill_tok_s"] = LM_MOE_PREFILL / pre_s
+        del pc, logits
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"lm/{name}/memory: peak {out['peak_gb']:.3f} GB allocated in this model's run")
+    del params, cache
+    return out
+
+
+def moe_train(device) -> dict:
+    """llama4-scout at train_4k's width, cut to LM_MOE_TRAIN_LAYERS layers:
+    build_lm_step's train step (remat, Adafactor) on one sequence of 4096,
+    LM_MOE_TRAIN_STEPS steps; ms per step, MFU, peak, idle share."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_lm_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import SyntheticLM
+
+    arch = get_arch("llama4-scout-17b-a16e")
+    arch = dataclasses.replace(arch, config=dataclasses.replace(
+        arch.config, n_layers=LM_MOE_TRAIN_LAYERS))
+    shape = arch.shape("train_4k")
+    step = build_lm_step(arch, shape)
+    cfg = step.cfg
+    check(step.seq_len == TRAIN_SEQ and cfg.remat and step.optimizer == "adafactor",
+          "llama4-scout train_4k: seq_len 4096, remat, Adafactor")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device=device).manual_seed(SEED + 63), cfg)
+    opt = step.init_opt_state(params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, 1, seed=SEED + 2)
+    tokens = [torch.from_numpy(data.batch(i)["tokens"]).to(device)
+              for i in range(LM_MOE_TRAIN_STEPS)]
+    secs, losses = [], []
+    for i in range(LM_MOE_TRAIN_STEPS):
+        (_, opt, res), s = timed(lambda: step.fn(params, opt, {"tokens": tokens[i]}))
+        secs.append(s)
+        losses.append(float(res["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"llama4-scout's training losses are finite: {losses}")
+    med = float(np.median(secs[1:]))
+    flops = 6.0 * cfg.active_param_count() * TRAIN_SEQ
+    kern = device_kernels(lambda: step.fn(params, opt, {"tokens": tokens[0]}),
+                          lambda: step.fn(params, opt, {"tokens": tokens[1]}),
+                          "llama4-scout's train step")
+    busy = sum(e.device_time_total for e in kern) / 1e3
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"lm/llama4-scout-17b-a16e/train: train_4k at full width cut to "
+          f"{LM_MOE_TRAIN_LAYERS} layer ({n_params} parameters, Adafactor, remat), one "
+          f"sequence of {TRAIN_SEQ} (global batch {shape.dims['global_batch']} cut): set up in "
+          f"{setup_s:.3f} s; losses {' '.join(f'{x:.6f}' for x in losses)}; ms/step median "
+          f"{med * 1e3:.3f} over steps 1-{LM_MOE_TRAIN_STEPS - 1} (step 0 {secs[0] * 1e3:.3f}; "
+          f"host clock, synchronised), {TRAIN_SEQ / med:.1f} tokens/s, MFU "
+          f"{flops / med / BF16_FLOP_PER_S:.4f} (6 x {cfg.active_param_count()} active "
+          f"parameters x {TRAIN_SEQ} tokens over {BF16_FLOP_PER_S / 1e12:.1f} TFLOP/s); peak "
+          f"{peak:.3f} GB; device busy {busy:.3f} ms of a profiled step, idle share "
+          f"{1 - busy / (med * 1e3):.4f}; by kind: {kernel_kinds(kern, 1)}")
+    del params, opt
+    return dict(ms=med * 1e3, mfu=flops / med / BF16_FLOP_PER_S, peak=peak)
+
+
+def moe_smoke_against_cpu(device) -> None:
+    """Both MoE archs' smoke configs (f32): build_lm_step's train step
+    (Adafactor), LM_MOE_SMOKE_STEPS steps on the card and on the CPU from
+    the same weights and batches, the losses within TRAIN_SMOKE_RTOL."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_lm_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import SyntheticLM
+
+    for name, _, _ in LM_MOE:
+        arch = get_arch(name)
+        step = build_lm_step(arch, arch.shape("train_4k"), smoke=True)
+        cfg = step.cfg
+        data = SyntheticLM(cfg.vocab_size, step.seq_len, step.batch, seed=SEED + 3)
+        host = tf.init_params(torch.Generator().manual_seed(SEED), cfg)
+        card = tf.ParamTree(tree_map(lambda t: t.detach().to(device, copy=True), host))
+        runs = {}
+        for where, params, dev in (("card", card, device), ("cpu", host, torch.device("cpu"))):
+            state = step.init_opt_state(params)
+            runs[where] = [float(step.fn(params, state, {"tokens": torch.from_numpy(
+                data.batch(i)["tokens"]).to(dev)})[2]["loss"]) for i in range(LM_MOE_SMOKE_STEPS)]
+        a, b = np.asarray(runs["card"]), np.asarray(runs["cpu"])
+        rel = float((np.abs(a - b) / np.abs(b)).max())
+        check(np.isfinite(a).all() and rel <= TRAIN_SMOKE_RTOL,
+              f"{name}: card and CPU losses differ by {rel} relative")
+        print(f"lm/{name}/card-vs-cpu: smoke config (f32, {cfg.moe.n_experts} experts top-"
+              f"{cfg.moe.top_k}), {LM_MOE_SMOKE_STEPS} Adafactor steps of build_lm_step from "
+              f"the same weights: losses {' '.join(f'{x:.6f}' for x in a)} on the card, max "
+              f"relative difference to the CPU's {rel:.3e} (tolerance {TRAIN_SMOKE_RTOL})")
+
+
+def moe_cli(device) -> None:
+    """The serving CLI with llama4-scout's smoke config behind the cache, in
+    process on the card (its back end replaying CUDA graphs, counted) and
+    on the CPU: both return 0 and print the same hit-rate line."""
+    import io
+
+    from repro_torch.launch import serve
+
+    replays = [0]
+
+    class Counted:
+        def __init__(self, graph):
+            self.graph = graph
+
+        def replay(self):
+            replays[0] += 1
+            self.graph.replay()
+
+    def capture(*a, **kw):
+        return {rows: (Counted(g), t, ids) for rows, (g, t, ids) in orig(*a, **kw).items()}
+
+    lines = {}
+    for where, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with patched(serve, "_capture_scores", capture) as orig, \
+                contextlib.redirect_stdout(buf):
+            rc = serve.main(list(LM_MOE_CLI) + extra)
+        secs = time.perf_counter() - t0
+        hit = [ln for ln in buf.getvalue().splitlines() if ln.startswith("hit_rate=")]
+        check(rc == 0 and len(hit) == 1, f"the CLI with an MoE back end on the {where} "
+              f"returned {rc}")
+        lines[where] = hit[0]
+        print(f"lm/moe/cli-{where}: main({' '.join(LM_MOE_CLI + tuple(extra))}) returned {rc} in "
+              f"{secs:.3f} s: {hit[0]}" + (f"; {replays[0]} CUDA graph replays of the back end"
+                                         if where == "card" else ""))
+        if where == "card":
+            check(replays[0] > 0, "the card's CLI served its misses through the CUDA graphs")
+    check(lines["card"] == lines["cpu"], "the CLI's hit-rate line differs between card and CPU")
+
+
+def phase_lm_moe(device):
+    """The MoE LMs at full width with their depth cut: llama4-scout and
+    arctic each decoded (``moe_decode``) after the previous is freed,
+    llama4-scout trained, both smoke configs trained against the CPU, and
+    the CLI with an MoE back end."""
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=device)  # 256 MiB > L2
+    out = {}
+    for name, layers, batch in LM_MOE:
+        out[name] = moe_decode(device, name, layers, batch, flush)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del flush
+    out["train"] = moe_train(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_smoke_against_cpu(device)
+    moe_cli(device)
     return out
 
 
@@ -3338,8 +3797,6 @@ def check_decode_attention(device, lm, flush):
     """decode_attention against its plain version on the card; times it on
     the decode path's own call beside its byte bound, the plain version and
     scaled_dot_product_attention."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.decode_attention import kernel as dak
     from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 
@@ -3373,24 +3830,17 @@ def check_decode_attention(device, lm, flush):
     print("kernels/decode_attention/partial fill: the slots past cur_len do not count")
 
     q, k, v, cur, scale, cap, win = lm["args"]
-    n_valid = min(int(cur), k.shape[1] - 1) + 1
     b, hkv, g, d = q.shape
-    qs = q.reshape(b, hkv * g, 1, d)  # query head kv * G + g
-    ks = k[:, :n_valid].permute(0, 2, 1, 3).contiguous()
-    vs = v[:, :n_valid].permute(0, 2, 1, 3).contiguous()
-    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale, enable_gqa=True)  # noqa: E731
-    lib_err = float((lib().reshape(q.shape).float()
-                     - decode_attention_plain(q, k, v, cur, scale).float()).abs().max())
     noop = lambda: None  # noqa: E731
     nb = decode_bytes(q, k, int(cur), win)
+    lib_ms, n_valid, lib_err = library_decode_ms(q, k, v, cur, scale, win, flush)
     row.update(
         ms=time_device(lambda: dak.decode_attention(q, k, v, cur, scale, cap, win), 50, flush, noop),
         plain_ms=time_host(lambda: decode_attention_plain(q, k, v, cur, scale, cap, win), 10,
                            flush, noop),
-        library_ms=time_device(lib, 50, flush, noop),
+        library_ms=lib_ms,
         bound_ms=nb / HBM_BYTES_PER_S * 1e3,
     )
-    del ks, vs
     print(f"kernels/decode_attention/real: B={b} Hkv={hkv} G={g} d={d} S={k.shape[1]} cur="
           f"{int(cur)} {q.dtype}: device {row['ms']:.6f} ms/launch (L2 flushed), "
           f"{nb / row['ms'] / 1e6:.1f} GB/s; plain {row['plain_ms']:.6f} ms; "
@@ -3398,6 +3848,31 @@ def check_decode_attention(device, lm, flush):
           f"before timing; max abs diff to plain {lib_err:.3e}) {row['library_ms']:.6f} ms; byte "
           f"bound {row['bound_ms']:.6f} ms ({nb / 1e9:.6f} GB)")
     return row
+
+
+def library_decode_ms(q, k, v, cur, scale, window, flush):
+    """The library's call for a decode_attention call: ``(ms,
+    keys, max abs diff to the plain version without a softcap)`` of
+    ``scaled_dot_product_attention`` with ``enable_gqa`` (query head kv * G
+    + g, as the kernel's).  The keys the mask keeps (the filled slots, of
+    the window where there is one) are copied to (B, Hkv, keys, d) before
+    timing, which stands for the mask.  SDPA has no logit softcap: on a
+    softcapped call it computes the function without it."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+
+    c = int(cur)
+    hi = min(c, k.shape[1] - 1) + 1
+    lo = max(0, c - window + 1) if window else 0
+    b, hkv, g, d = q.shape
+    qs = q.reshape(b, hkv * g, 1, d)
+    ks = k[:, lo:hi].permute(0, 2, 1, 3).contiguous()
+    vs = v[:, lo:hi].permute(0, 2, 1, 3).contiguous()
+    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale, enable_gqa=True)  # noqa: E731
+    err = float((lib().reshape(q.shape).float()
+                 - decode_attention_plain(q, k, v, cur, scale, None, window).float()).abs().max())
+    return time_device(lib, 50, flush, lambda: None), hi - lo, err
 
 
 def deepest_mix(common) -> str:
@@ -3620,6 +4095,12 @@ def main() -> int:
           f"allocated through phase lm's gemma-2b; {torch.cuda.memory_allocated() / 1e9:.3f} GB "
           f"after releasing it")
     wide = phase("lm/windowed", phase_lm_windowed, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    moe = phase("lm/moe", phase_lm_moe, device)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train = phase("train", phase_train, device)
     gc.collect()
@@ -3666,20 +4147,29 @@ def main() -> int:
     ))
     r = rows["decode_attention"]
     g27, glm = wide["gemma2-27b"], wide["glm4-9b"]
+    l4, arc = moe["llama4-scout-17b-a16e"], moe["arctic-480b"]
     kernels.append(dict(
         name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/kernel.py:90",
-        launches=lm_launches + g27["launches"] + glm["launches"],
+        launches=lm_launches + g27["launches"] + glm["launches"] + l4["launches"]
+        + arc["launches"],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
-        # the windowed LMs' paths (phase lm): gemma2-27b's local layer 0
-        # through the window slice and the full read, glm4-9b's layer 0
+        # the other LMs' paths (phases lm/windowed and lm/moe): gemma2-27b's
+        # local layer 0 through the window slice and the full read, glm4-9b's,
+        # llama4-scout's and arctic's layer 0
         launches_by_path={"gemma-2b": lm_launches, "gemma2-27b": g27["launches"],
-                          "glm4-9b": glm["launches"]},
+                          "glm4-9b": glm["launches"], "llama4-scout-17b-a16e": l4["launches"],
+                          "arctic-480b": arc["launches"]},
         gemma2_27b_slice_ms=g27["slice_ms"], gemma2_27b_full_ms=g27["full_ms"],
         gemma2_27b_plain_ms=g27["plain_ms"], gemma2_27b_bound_ms=g27["bound_ms"],
+        gemma2_27b_library_ms=g27["library_ms"],
         glm4_9b_ms=glm["full_ms"], glm4_9b_plain_ms=glm["plain_ms"],
-        glm4_9b_bound_ms=glm["bound_ms"],
+        glm4_9b_bound_ms=glm["bound_ms"], glm4_9b_library_ms=glm["library_ms"],
+        llama4_scout_ms=l4["ms"], llama4_scout_plain_ms=l4["plain_ms"],
+        llama4_scout_bound_ms=l4["bound_ms"], llama4_scout_library_ms=l4["library_ms"],
+        arctic_ms=arc["ms"], arctic_plain_ms=arc["plain_ms"],
+        arctic_bound_ms=arc["bound_ms"], arctic_library_ms=arc["library_ms"],
     ))
     r = rec["row"]  # the serve_bulk user bag
     kernels.append(dict(

@@ -58,6 +58,7 @@ from ..loadgen import (
     stamp_arrivals,
 )
 from ..models import transformer as tf
+from ..models.common import top_k_ids
 from ..querylog import DriftConfig, SynthConfig, generate, generate_drifting
 from ..serving import (
     BucketSpec,
@@ -79,13 +80,6 @@ def query_tokens(qids: np.ndarray, vocab_size: int) -> np.ndarray:
     """(n, 8) int64 token windows derived from the query ids."""
     q = np.asarray(qids).astype(np.int64)
     return (q[:, None] * 31 + np.arange(QUERY_TOKENS)[None, :]) % vocab_size
-
-
-def top_k_ids(logits: torch.Tensor, k: int) -> torch.Tensor:
-    """The ``k`` largest entries' indices per row, descending, the lower
-    index first among equal values (as ``jax.lax.top_k``): a stable sort,
-    since ``torch.topk`` on the card does not fix the order of ties."""
-    return torch.sort(logits, dim=-1, descending=True, stable=True).indices[:, :k]
 
 
 @torch.no_grad()
@@ -134,10 +128,13 @@ def lm_backend(params: tf.ParamTree, cfg: tf.TransformerConfig, value_dim: int =
     replays a CUDA graph of ``model_scores`` captured here for the next
     power of two of rows: one launch where the eager forward issues ~150
     small kernels, each at the host's dispatch cost.  It stands where the
-    reference jit-compiles ``model_scores``.  Each
-    row's window is scored alone, so the rows past ``n`` change nothing.
-    Larger calls, and every call on the CPU, run eagerly.  Calls from
-    several threads take turns on the graphs."""
+    reference jit-compiles ``model_scores``.  The rows past ``n`` are
+    zero windows.  A dense model scores each row's window alone, so they
+    change nothing; in an MoE model a call's tokens share the experts'
+    capacity (as in the reference, whose batch of windows shares it), so a
+    replay answers as the eager call on the padded rows does.  Larger
+    calls, and every call on the CPU, run eagerly.  Calls from several
+    threads take turns on the graphs."""
     dev = resolve_device(device)
     graphs = (_capture_scores(params, cfg, value_dim, dev, graph_max)
               if graph_max > 0 and dev.type == "cuda" else {})
@@ -150,6 +147,7 @@ def lm_backend(params: tf.ParamTree, cfg: tf.TransformerConfig, value_dim: int =
             graph, inp, ids = graphs[_graph_rows(n)]
             with lock:
                 inp[:n].copy_(tokens)
+                inp[n:].zero_()
                 graph.replay()
                 return ids[:n].cpu().numpy()
         return model_scores(params, tokens.to(dev), cfg, value_dim).cpu().numpy()

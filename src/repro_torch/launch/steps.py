@@ -3,8 +3,10 @@
 ``build_gnn_step``, ``_recsys_fns``, ``build_recsys_step``) on one device.
 
 :func:`build_lm_step` gives the LM's ``train`` (loss, gradients, AdamW or
-Adafactor as ``_lm_optimizer`` picks), ``prefill`` and ``decode`` steps with
-the reference's ``model_flops``.  :func:`build_gnn_step` gives PNA's serve
+Adafactor as ``_lm_optimizer`` picks: Adafactor for the MoE archs),
+``prefill`` and ``decode`` steps with the reference's ``model_flops``.  An
+MoE arch's steps run its MoE on the one device, the function the
+reference's shard-local MoE computes on a mesh of one device.  :func:`build_gnn_step` gives PNA's serve
 step (``molecule``: padded molecules through ``forward_batched``) and its
 train steps (node classification with AdamW) on a seeded batch at the
 reference's padded sizes.  For each recsys architecture, the training
@@ -136,8 +138,8 @@ def _lm_optimizer(arch: Arch) -> str:
 def build_lm_step(arch: Arch, shape: ShapeSpec, smoke: bool = False) -> LMStep:
     """The ``train``, ``prefill`` or ``decode`` step of an LM ``arch`` at
     ``shape`` (seq_len <= 64 and batch <= 4 with ``smoke``, as the
-    reference's).  The reference's ``opts`` (perf levers, MoE placement)
-    wait with MoE and the mesh."""
+    reference's).  The reference's ``opts`` (perf levers) and its MoE
+    placement over the mesh's axes wait with the mesh."""
     if arch.family != "lm":
         raise ValueError(f"{arch.name} is not an LM architecture")
     cfg: transformer.TransformerConfig = arch.smoke_config if smoke else arch.config

@@ -65,6 +65,14 @@ ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
+def top_k_ids(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``k`` largest entries' indices along the last axis, descending,
+    the lower index first among equal values (as ``jax.lax.top_k``): a
+    stable sort, since ``torch.topk`` on the card does not fix the order of
+    ties."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
     if cap is None:

@@ -35,9 +35,21 @@ policy=nothing_saveable)``.  Attention in training is the plain chunked
 :func:`_attend` (f32 scores and weights), as in the reference, where it is
 plain XLA: no Pallas kernel computes it.
 
-Not ported yet, and raising ``NotImplementedError``: MoE layers and the
-sequence-parallel residual (``act_seq_axis``).  ``kv_quant`` is a field the
-reference declares and never reads; the port does the same.
+MoE layers (llama4-scout top-1 with a shared expert, arctic top-2 with a
+dense residual FFN) run the reference's single-shard body ``_moe_local``:
+f32 routing, top-k with the lower expert first among ties, a stable sort
+of the slots by expert, and the expert FFNs by ``impl``: ``"capacity"``
+(the default: a window of ``cap`` slots per expert, GShard drops, shapes
+fixed by the token count, so no host sync and a decode step stays
+graph-shaped) or ``"ragged"`` (dropless, one product per non-empty group;
+it reads the group sizes on the host).  ``forward`` returns the layers'
+mean Switch aux and ``loss_fn`` adds ``router_aux_weight`` times it.
+
+Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md, Queue 1
+item 12 part 4, with the mesh): the shard-local MoE over a mesh
+(``moe_batch_axes``) and the sequence-parallel residual (``act_seq_axis``).
+``set_moe_mesh`` keeps its handle as the reference's does.  ``kv_quant`` is
+a field the reference declares and never reads; the port does the same.
 """
 from __future__ import annotations
 
@@ -52,14 +64,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attention import decode_attention_op
 from .common import (ACTIVATIONS, apply_rope, cross_entropy, dense, rmsnorm, softcap,
-                     tensor_from_numpy, truncated_normal)
+                     tensor_from_numpy, top_k_ids, truncated_normal)
 
 NEG_INF = -1e30
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1 item 12)"
+        f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1 item 12 part 4: "
+        f"the mesh)"
     )
 
 
@@ -180,8 +193,8 @@ class ParamTree(nn.Module):
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise _not_ported("MoE (_moe_ffn, _moe_local, set_moe_mesh)")
+    if cfg.moe is not None and cfg.moe_batch_axes is not None:
+        raise _not_ported("the shard-local MoE over a mesh (moe_batch_axes)")
     if cfg.act_seq_axis is not None:
         raise _not_ported("the sequence-parallel residual (_constrain_residual)")
 
@@ -189,20 +202,26 @@ def _check_supported(cfg: TransformerConfig) -> None:
 def init_params(generator: torch.Generator, cfg: TransformerConfig) -> ParamTree:
     """Seeded random weights on the generator's device, with the
     reference's shapes, names and scales (``init_params``, ``init_layer``).
-    Stacked tensors are drawn a layer at a time, so the f32 draw never
-    holds more than one layer's tensor."""
-    if cfg.moe is not None:
-        raise _not_ported("MoE (init of the expert weights)")
+    Stacked tensors are drawn a layer at a time, and the experts' an expert
+    at a time, so the f32 draw never holds more than one layer's tensor or
+    one expert's (a layer of arctic's ``wi`` is 35.7 GB in f32)."""
     dev = generator.device
     d, hd, n_l, dt = cfg.d_model, cfg.head_dim, cfg.n_layers, cfg.dtype
 
     def tn(shape, std, dtype=dt):
         return truncated_normal(shape, std, dtype, generator, dev)
 
-    def stacked(shape, std):
-        out = torch.empty((n_l, *shape), dtype=dt, device=dev)
+    def stacked(shape, std, dtype=dt):
+        out = torch.empty((n_l, *shape), dtype=dtype, device=dev)
         for i in range(n_l):
-            out[i] = tn(shape, std)
+            out[i] = tn(shape, std, dtype)
+        return out
+
+    def per_expert(shape, std):
+        out = torch.empty((n_l, cfg.moe.n_experts, *shape), dtype=dt, device=dev)
+        for i in range(n_l):
+            for e in range(cfg.moe.n_experts):
+                out[i, e] = tn(shape, std)
         return out
 
     def zeros(*shape):
@@ -222,11 +241,21 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig) -> ParamTree
         "attn": attn,
         "pre_attn_norm": {"scale": zeros(n_l, d)},
         "pre_mlp_norm": {"scale": zeros(n_l, d)},
-        "mlp": {
-            "wi": stacked((d, 2 * cfg.d_ff), d**-0.5),
-            "wo": stacked((cfg.d_ff, d), cfg.d_ff**-0.5),
-        },
     }
+    m = cfg.moe
+    if m is not None:
+        # wi (E, D, 2, F): gate and up on an axis of their own, as the reference's
+        layers["moe"] = {
+            "router": stacked((d, m.n_experts), d**-0.5, torch.float32),
+            "wi": per_expert((d, 2, m.d_ff), d**-0.5),
+            "wo": per_expert((m.d_ff, d), m.d_ff**-0.5),
+        }
+    ff = cfg.d_ff if m is None else m.dense_residual_ff
+    if ff:
+        layers["mlp"] = {
+            "wi": stacked((d, 2 * ff), d**-0.5),
+            "wo": stacked((ff, d), ff**-0.5),
+        }
     if cfg.post_norms:
         layers["post_attn_norm"] = {"scale": zeros(n_l, d)}
         layers["post_mlp_norm"] = {"scale": zeros(n_l, d)}
@@ -360,19 +389,145 @@ def _dense_ffn(mlp, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     return dense(mlp["wo"], _act(cfg, gate) * up)
 
 
+def _route(x: torch.Tensor, router: torch.Tensor, cfg: TransformerConfig):
+    """``(probs (T, E), weights (T, k), experts (T, k))``: the f32 router's
+    softmax, its top k (the lower expert first among equal probabilities,
+    as ``jax.lax.top_k``) and their probabilities renormalised to sum 1."""
+    m = cfg.moe
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    experts = top_k_ids(probs, m.top_k)
+    weights = probs.gather(-1, experts)
+    return probs, weights / weights.sum(dim=-1, keepdim=True).clamp(min=1e-9), experts
+
+
+def _group_sizes(flat_expert: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """(E,) int64 slots per expert, by a one-hot sum (``torch.bincount``
+    reads its length on the host)."""
+    ids = torch.arange(n_experts, device=flat_expert.device)
+    return (flat_expert[:, None] == ids).sum(dim=0)
+
+
+def _capacity(m: MoEConfig, tk: int, n_experts: int) -> int:
+    """The slots an expert's window holds: ``cf * T * k / E`` rounded up to
+    a multiple of 8, at least 8 and at most ``T * k``."""
+    cap = math.ceil(m.capacity_factor * tk / n_experts / 8) * 8
+    return min(max(cap, 8), tk)
+
+
+def _expert_ffn(cfg: TransformerConfig, x: torch.Tensor, wi: torch.Tensor,
+                wo: torch.Tensor) -> torch.Tensor:
+    """The gated FFN of experts at once: x (..., C, D), wi (..., D, 2, F),
+    wo (..., F, D), in x's dtype."""
+    f = wi.shape[-1]
+    h = x @ wi.reshape(*wi.shape[:-2], 2 * f).to(x.dtype)
+    return (_act(cfg, h[..., :f]) * h[..., f:]) @ wo.to(x.dtype)
+
+
+def _capacity_grouped_ffn(xs: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                          group_sizes: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """The expert FFNs with a fixed capacity per expert, GShard drops.
+
+    xs (T*k, D) are the slots sorted by expert.  Each expert computes on
+    the window of ``cap`` slots at its group's start, the start clamped to
+    ``T*k - cap``; a slot counts only in its own expert's window, so a
+    group longer than ``cap`` drops its tail and the windows' overlaps add
+    zeros.  All experts' windows go in one batched product, and the
+    windows are added back out of place, every shape fixed by T*k: no host
+    sync, so a decode step stays graph-shaped."""
+    tk, d = xs.shape
+    e = wi.shape[0]
+    cap = _capacity(cfg.moe, tk, e)
+    starts = torch.cumsum(group_sizes, 0) - group_sizes
+    pos = starts.clamp(max=tk - cap)[:, None] + torch.arange(cap, device=xs.device)  # (E, cap)
+    y = _expert_ffn(cfg, xs.index_select(0, pos.reshape(-1)).reshape(e, cap, d), wi, wo)
+    valid = (pos >= starts[:, None]) & (pos < (starts + group_sizes)[:, None])
+    y = y.masked_fill(~valid[..., None], 0.0)
+    return torch.zeros_like(xs).index_add(0, pos.reshape(-1), y.reshape(e * cap, d))
+
+
+def _ragged_ffn(xs: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                group_sizes: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """The expert FFNs without drops (the reference's ``ragged_dot``): one
+    product per non-empty group of the sorted slots xs (T*k, D).  The group
+    sizes are read on the host, a sync."""
+    outs, start = [], 0
+    for i, n in enumerate(group_sizes.tolist()):
+        if n:
+            outs.append(_expert_ffn(cfg, xs[start : start + n], wi[i], wo[i]))
+            start += n
+    return torch.cat(outs)
+
+
+def _moe_local(x: torch.Tensor, router, wi, wo, cfg: TransformerConfig):
+    """The reference's single-shard MoE body (``tp_axis=None``): x (T, D),
+    router (D, E), wi (E, D, 2, F), wo (E, F, D) -> ``(out (T, D) in x's
+    dtype, the Switch aux: E * sum(fraction routed first * mean prob))``.
+
+    The slots (token, choice) are sorted by expert with a stable sort, so
+    an expert's slots keep token order; the FFN output is scattered back to
+    slot order and summed over the k choices with the routing weights."""
+    m = cfg.moe
+    probs, weights, experts = _route(x, router, cfg)
+    flat = experts.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    xs = x.index_select(0, order // m.top_k)
+    sizes = _group_sizes(flat, m.n_experts)
+    ffn = _ragged_ffn if m.impl == "ragged" else _capacity_grouped_ffn
+    y = ffn(xs, wi, wo, sizes, cfg)
+    unsorted = torch.zeros_like(y).index_copy(0, order, y)
+    out = (unsorted.reshape(x.shape[0], m.top_k, -1) * weights[..., None].to(y.dtype)).sum(dim=1)
+    frac = _group_sizes(experts[:, 0], m.n_experts).float() / x.shape[0]
+    aux = m.n_experts * torch.sum(frac * probs.mean(dim=0))
+    return out.to(x.dtype), aux
+
+
+def _moe_ffn(moe_p, x: torch.Tensor, cfg: TransformerConfig):
+    """The MoE on one device: ``_moe_local`` over all of x's tokens."""
+    return _moe_local(x, moe_p["router"], moe_p["wi"], moe_p["wo"], cfg)
+
+
+# The reference's trace-time mesh handle for the shard-local MoE and the
+# sequence-parallel residual, kept for its callers; nothing ported reads it
+# yet (those paths wait with the mesh).
+_MOE_MESH = None
+
+
+def set_moe_mesh(mesh) -> None:
+    global _MOE_MESH
+    _MOE_MESH = mesh
+
+
+# alias: the mesh context is used by more than the MoE
+set_mesh = set_moe_mesh
+
+
+def get_moe_mesh():
+    if _MOE_MESH is None:
+        raise RuntimeError("set_moe_mesh(mesh) must be called before tracing a "
+                           "distributed MoE step")
+    return _MOE_MESH
+
+
 def _finish(layer, x, attn, cfg: TransformerConfig):
     """The rest of a layer after attention: output projection, post norm,
-    residual, then the FFN block."""
+    residual, then the FFN block (the MoE, plus the dense residual FFN when
+    the config has one): ``(x, aux)``."""
     b, s = x.shape[:2]
     attn = dense(layer["attn"]["o"], attn.reshape(b, s, cfg.n_heads * cfg.head_dim))
     if cfg.post_norms:
         attn = rmsnorm(layer["post_attn_norm"]["scale"], attn, cfg.norm_eps)
     x = x + attn
     h = rmsnorm(layer["pre_mlp_norm"]["scale"], x, cfg.norm_eps)
-    y = _dense_ffn(layer["mlp"], h, cfg)
+    if cfg.moe is not None:
+        y, aux = _moe_ffn(layer["moe"], h.reshape(b * s, -1), cfg)
+        y = y.reshape(b, s, -1)
+        if cfg.moe.dense_residual_ff:
+            y = y + _dense_ffn(layer["mlp"], h, cfg)
+    else:
+        y, aux = _dense_ffn(layer["mlp"], h, cfg), torch.zeros((), device=x.device)
     if cfg.post_norms:
         y = rmsnorm(layer["post_mlp_norm"]["scale"], y, cfg.norm_eps)
-    return x + y
+    return x + y, aux
 
 
 def layer_forward(
@@ -397,8 +552,7 @@ def layer_forward(
     h = rmsnorm(layer["pre_attn_norm"]["scale"], x, cfg.norm_eps)
     q, k, v = _qkv(layer, h, cfg, positions)
     if k_cache is None:
-        attn = _attend(q, k, v, cfg, positions, is_local)
-        return _finish(layer, x, attn, cfg), torch.zeros((), device=x.device), None
+        return (*_finish(layer, x, _attend(q, k, v, cfg, positions, is_local), cfg), None)
     slot = cache_len.clamp(0, k_cache.shape[1] - 1).long().reshape(1)
     k_cache.index_copy_(1, slot, k)
     v_cache.index_copy_(1, slot, v)
@@ -408,7 +562,7 @@ def layer_forward(
         cfg.window if is_local and not sliced else None, use_kernel=use_kernel,
         window_slice=cfg.window if sliced else None,
     )
-    return _finish(layer, x, attn, cfg), torch.zeros((), device=x.device), (k_cache, v_cache)
+    return (*_finish(layer, x, attn, cfg), (k_cache, v_cache))
 
 
 def _embed(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
@@ -429,38 +583,48 @@ def _unembed(params: ParamTree, x: torch.Tensor, cfg: TransformerConfig) -> torc
     return softcap(logits.float(), cfg.final_logit_softcap)
 
 
-def hidden(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    """The final-normed residual stream (B, S, D) of ``tokens`` (B, S).
-    With ``cfg.remat``, when a gradient is being taken (gradients enabled,
-    parameters that require them), each layer is checkpointed: its
-    activations are recomputed in the backward pass."""
+def _hidden_aux(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig):
+    """``(hidden(...), the layers' mean MoE aux)``."""
     _check_supported(cfg)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)
     loc = cfg.layer_is_local()
     remat = cfg.remat and torch.is_grad_enabled() and any(
         p.requires_grad for p in params.parameters())
+    auxes = []
     for i, layer in enumerate(_layers(params, cfg.n_layers)):
         if remat:
-            x, _, _ = checkpoint(layer_forward, layer, x, cfg, positions, bool(loc[i]),
-                                 use_reentrant=False)
+            x, aux, _ = checkpoint(layer_forward, layer, x, cfg, positions, bool(loc[i]),
+                                   use_reentrant=False)
         else:
-            x, _, _ = layer_forward(layer, x, cfg, positions, bool(loc[i]))
-    return rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps)
+            x, aux, _ = layer_forward(layer, x, cfg, positions, bool(loc[i]))
+        auxes.append(aux)
+    return rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps), torch.stack(auxes).mean()
+
+
+def hidden(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """The final-normed residual stream (B, S, D) of ``tokens`` (B, S).
+    With ``cfg.remat``, when a gradient is being taken (gradients enabled,
+    parameters that require them), each layer is checkpointed: its
+    activations are recomputed in the backward pass."""
+    return _hidden_aux(params, tokens, cfg)[0]
 
 
 def forward(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig):
     """tokens (B, S) -> (logits (B, S, V) f32, aux): the reference's forward
-    (aux is 0: no MoE)."""
-    x = hidden(params, tokens, cfg)
-    return _unembed(params, x, cfg), torch.zeros((), device=x.device)
+    (aux the layers' mean MoE aux, 0 without MoE)."""
+    x, aux = _hidden_aux(params, tokens, cfg)
+    return _unembed(params, x, cfg), aux
 
 
 def loss_fn(params: ParamTree, batch: Dict[str, torch.Tensor], cfg: TransformerConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S), a 0-d
-    f32 tensor (no MoE, so no router aux term)."""
-    logits, _ = forward(params, batch["tokens"], cfg)
-    return cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S), plus
+    ``router_aux_weight`` times the aux with MoE: a 0-d f32 tensor."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    loss = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +685,7 @@ def prefill(
     for i, layer in enumerate(_layers(params, cfg.n_layers)):
         h = rmsnorm(layer["pre_attn_norm"]["scale"], x, cfg.norm_eps)
         q, k, v = _qkv(layer, h, cfg, positions)
-        x = _finish(layer, x, _attend(q, k, v, cfg, positions, bool(loc[i])), cfg)
+        x, _ = _finish(layer, x, _attend(q, k, v, cfg, positions, bool(loc[i])), cfg)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     x = rmsnorm(params["final_norm"]["scale"], x[:, -1:], cfg.norm_eps)

@@ -657,7 +657,8 @@ def test_topic_pipeline_on_card_equals_cpu(cuda):
 
 #: tests/test_kernels.py's sweep, then gemma2-27b's (Hkv 16, G 2, d 128,
 #: softcap 50, window 4096), glm4-9b's (Hkv 2, G 16, d 128) and gemma-2b's
-#: (Hkv 1, G 8, d 256) decode geometries at a shorter S, S off every tile,
+#: (Hkv 1, G 8, d 256) decode geometries at a shorter S, llama4-scout's
+#: (Hkv 8, G 5, d 128) and arctic's (Hkv 8, G 7, d 128), S off every tile,
 #: groups that are not a power of two or exceed 16, and narrow heads
 DECODE_SHAPES = [
     (2, 2, 4, 64, 256, None, None),
@@ -668,6 +669,8 @@ DECODE_SHAPES = [
     (2, 16, 2, 128, 8200, 50.0, 4096),
     (2, 2, 16, 128, 4133, None, None),
     (4, 1, 8, 256, 2081, None, None),
+    (3, 8, 5, 128, 4133, None, None),
+    (3, 8, 7, 128, 4133, None, None),
     (3, 1, 3, 64, 33, None, None),
     (2, 1, 3, 16, 70, 20.0, None),
     (1, 1, 32, 64, 300, None, 100),
@@ -743,7 +746,8 @@ def test_decode_attention_tensor_core_kernel_on_the_card(cuda, g, d):
 
 
 @pytest.mark.parametrize("hkv,g,d,cap,win", [(2, 8, 128, None, None), (4, 2, 256, 50.0, 300),
-                                             (3, 16, 64, None, 90), (2, 4, 16, 20.0, None)])
+                                             (3, 16, 64, None, 90), (2, 4, 16, 20.0, None),
+                                             (8, 5, 128, None, None), (8, 7, 128, None, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_with_strided_heads(cuda, hkv, g, d, cap, win, dtype):
     """Hkv > 1: a position's rows of one kv head are strided, so the bf16

@@ -29,6 +29,9 @@ CASES = {
     "drift_rebalance": ["--drift-phases", "4", "--rebalance", "8", "--shards", "2"],
     "open_loop_crash": ["--open-loop", "--shards", "2", "--fault-shard", "1@0.02",
                         "--slo-p99-ms", "1e9", "--min-availability", "1.0"],
+    # an MoE back end (llama4-scout's smoke config): the port's CLI no longer
+    # dies on the flag
+    "moe_back_end": ["--arch", "llama4-scout-17b-a16e"],
 }
 
 _KEEP = (

@@ -33,6 +33,7 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as da_kernel  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -217,6 +218,7 @@ def test_top_k_puts_the_lower_index_first_among_ties(k):
     logits[:, 100:120] = logits.max(axis=1, keepdims=True)  # 20 exact ties at the top
     want = np.asarray(jax.lax.top_k(jnp.asarray(logits), k)[1])
     got = tserve.top_k_ids(torch.from_numpy(logits), k).numpy()
+    assert tserve.top_k_ids is tcommon.top_k_ids
     assert np.array_equal(got, want)
 
 
@@ -240,13 +242,15 @@ def test_lm_configs_equal_the_jax_registrys(name):
 
 
 def test_other_families_are_named_but_not_ported():
-    """Every architecture of the JAX registry is in the port's (the GNN
-    family since it was ported), and each served dense LM and PNA has its
-    config module."""
-    from repro_torch.configs import gemma2_27b, gemma_2b, glm4_9b, pna
+    """Every architecture of the JAX registry is in the port's, and each LM
+    (the MoE ones since they were ported) and PNA has its config module."""
+    from repro_torch.configs import (arctic_480b, gemma2_27b, gemma_2b, glm4_9b,
+                                     llama4_scout_17b_a16e, pna)
 
     for mod, arch in ((gemma_2b, treg.GEMMA_2B), (gemma2_27b, treg.GEMMA2_27B),
-                      (glm4_9b, treg.GLM4_9B)):
+                      (glm4_9b, treg.GLM4_9B), (llama4_scout_17b_a16e, treg.LLAMA4_SCOUT),
+                      (arctic_480b, treg.ARCTIC_480B)):
+        assert mod.ARCH is arch
         assert mod.CONFIG == arch.config and mod.SMOKE_CONFIG == arch.smoke_config
         assert set(mod.SHAPES) == {s.name for s in jreg.LM_SHAPES}
     assert pna.ARCH is treg.PNA and set(pna.SHAPES) == {s.name for s in jreg.PNA.shapes}
@@ -278,24 +282,39 @@ def test_init_params_has_the_references_tree():
 
 
 def test_what_is_not_ported_raises():
+    """Only the mesh-bound paths raise: the shard-local MoE
+    (``moe_batch_axes``) and the sequence-parallel residual; an MoE config
+    on one device runs (tests/test_torch_moe.py holds it to JAX)."""
     jcfg = _tiny()
     _, tp, tcfg = _models(jcfg)
     tok = torch.zeros((1, 4), dtype=torch.int64)
     moe = dc.replace(tcfg, moe=ttf.MoEConfig(n_experts=4, top_k=1, d_ff=32))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttf.forward(tp, tok, moe)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttf.init_params(torch.Generator(), moe)
+    mp = ttf.init_params(torch.Generator().manual_seed(0), moe)
+    logits, aux = ttf.forward(mp, tok, moe)
+    assert logits.shape == (1, 4, moe.vocab_size) and float(aux) > 0
+    with pytest.raises(NotImplementedError, match="moe_batch_axes"):
+        ttf.forward(mp, tok, dc.replace(moe, moe_batch_axes=("data",)))
+    with pytest.raises(NotImplementedError, match="moe_batch_axes"):
+        ttf.decode_step(mp, ttf.init_cache(moe, 1, 6, device="cpu"), tok[:, :1],
+                        dc.replace(moe, moe_batch_axes=("data",)))
     with pytest.raises(NotImplementedError, match="_constrain_residual"):
         ttf.forward(tp, tok, dc.replace(tcfg, act_seq_axis="data"))
+    with pytest.raises(RuntimeError, match="set_moe_mesh"):
+        ttf.get_moe_mesh()
+    ttf.set_mesh("mesh")
+    try:
+        assert ttf.get_moe_mesh() == "mesh"
+    finally:
+        ttf.set_moe_mesh(None)
     # the decode_window_slice lever is ported (tests/test_torch_window_slice.py):
     # on a model without local layers it changes nothing
     _, cache = ttf.prefill(tp, tok, tcfg, max_len=6)
     lever = ttf.decode_step(tp, {k: v.clone() for k, v in cache.items()}, tok[:, :1],
                             dc.replace(tcfg, decode_window_slice=True))[0]
     assert torch.equal(lever, ttf.decode_step(tp, cache, tok[:, :1], tcfg)[0])
-    # training is ported (tests/test_torch_train.py); MoE's loss still raises
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttf.loss_fn(tp, {"tokens": tok}, moe)
+    # training is ported (tests/test_torch_train.py), MoE's loss with its aux term
+    assert float(ttf.loss_fn(mp, {"tokens": tok}, moe)) == pytest.approx(
+        float(ttf.loss_fn(mp, {"tokens": tok}, dc.replace(
+            moe, moe=dc.replace(moe.moe, router_aux_weight=0.0)))) + 0.01 * float(aux), rel=1e-6)
     tp["embed"].requires_grad_(True)
     assert torch.isfinite(ttf.loss_fn(tp, {"tokens": tok}, tcfg))
