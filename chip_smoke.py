@@ -176,6 +176,27 @@ Phases (any failure raises and exits non-zero):
    llama4-scout's smoke config behind the cache, on the card (its back
    end's CUDA graph replays counted) and on the CPU: both return 0 with
    the same hit-rate line;
+   mesh (after lm/moe): ``repro_torch.launch.steps.build_step`` on a mesh
+   of one rank (``make_smoke_mesh``: an nccl world of one on a
+   ``HashStore``), every input placed as DTensors by the bundle's
+   shardings: gemma-2b's decode_32k at full width (batch cut to 64) and
+   llama4-scout's (8 layers, batch 16, the shard-local MoE with
+   ``moe_batch_axes=("data",)``, tp "model", no FSDP axis), ``MESH_STEPS``
+   greedy steps each after a warm-up step, ``decode_attention``'s launches
+   counted (one a layer a step), the logits held to the ``mesh=None`` step
+   on the same parameters, cache and tokens (bit-equal, else within
+   ``decode_close``); gemma-2b's train_4k step (batch TRAIN_BATCH) with
+   ``opts={"act_seq_axis": "model"}`` and without from the same weights:
+   the losses and sampled updated parameters bit-equal; two-tower's
+   serve_bulk (262,144) at full width, two ``embedding_bag`` launches,
+   the scores bit-equal to the ``mesh=None`` serve; PNA's full_graph_sm
+   step with ``dist_edges`` (``forward_dist``) and without, the losses
+   within ``GNN_LOSS_RTOL``.  Beside them, from the phase's start, the
+   dry-run of all 40 cells on both production meshes runs in a subprocess
+   on the host (``python -m repro_torch.launch.dryrun --all --both-meshes``,
+   ``DRYRUN_TIMEOUT``; a fake process group of 256 or 512 ranks, every
+   tensor on meta): every cell ok, the largest per-device argument bytes
+   and the cells over 80 GB printed;
 9. train: training on the card (``repro_torch.launch.steps.build_lm_step``
    and ``build_recsys_step``'s train kinds, AdamW).  gemma-2b at full
    published width at train_4k (seq_len 4096, remat, 2.51B bf16 parameters
@@ -269,7 +290,8 @@ The last three lines are one JSON object ``{"kernels": [...]}`` (each
 cache kernel's ``launches`` summed over the serve, broker and cluster
 phases, ``topic_score``'s over the topics and cluster phases,
 ``embedding_bag``'s over the train and recsys phases, ``decode_attention``'s
-over gemma-2b's, the windowed LMs' and the MoE LMs' decode runs, each counted
+over gemma-2b's, the windowed LMs', the MoE LMs' and phase mesh's decode
+runs (``embedding_bag``'s also over phase mesh's serve), each counted
 from 0 just before its path; ``probe_and_commit``'s row also carries the
 migration launch's times and the hash reshard's), the
 card's name and power limit as ``nvidia-smi`` gives them, and
@@ -427,6 +449,12 @@ LM_MOE_TRAIN_STEPS = 3
 #: the CPU from the same weights, the losses within TRAIN_SMOKE_RTOL
 LM_MOE_SMOKE_STEPS = 3
 #: the serving CLI with an MoE back end, on the card and on the CPU
+#: phase mesh: greedy decode steps of each LM through build_step; the
+#: dry-run's cells (40 on each production mesh) and its time limit, from its
+#: start at the phase's start
+MESH_STEPS = 4
+DRYRUN_CELLS = 80
+DRYRUN_TIMEOUT = 240
 LM_MOE_CLI = ("--arch", "llama4-scout-17b-a16e", "--requests", "20000", "--entries", "1024")
 #: phase gnn: PNA at its full config (4 layers, width 75, d_in 1433, 64
 #: classes, f32) on its four shapes.  molecule (serve) timed over
@@ -2678,6 +2706,293 @@ def phase_lm_moe(device):
     return out
 
 
+# -- phase 8b: the mesh: build_step on a mesh of one rank, and the dry-run ---------
+
+
+def mesh_world(device):
+    """A world of one (``nccl`` on a ``HashStore``) and its (1, 1) mesh."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    mesh = make_smoke_mesh(device=device)
+    check(torch.distributed.get_backend() == "nccl" and mesh.size() == 1,
+          "phase mesh: an nccl world of one")
+    return mesh
+
+
+def start_dryrun():
+    """The dry-run of every cell on both production meshes, in a subprocess
+    on the CPU (its fake process group must not share a process with
+    NCCL), in a session of its own (its worker processes are killed with
+    it), its log and JSON under build/ (removed after the phase reads them)."""
+    out = ROOT / "build" / "dryrun" / "dryrun.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    log = open(out.with_suffix(".log"), "w")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--both-meshes", "--quiet",
+         "--json", str(out)], cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    log.close()
+    return proc, out, time.perf_counter()
+
+
+def stop_dryrun(proc) -> None:
+    """Kill the dry-run's whole session and reap it."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def finish_dryrun(proc, out, t0) -> dict:
+    """Wait for the dry-run (DRYRUN_TIMEOUT after its start), check every
+    cell, print the largest per-device argument bytes and the cells over
+    80 GB."""
+    try:
+        proc.wait(timeout=max(DRYRUN_TIMEOUT - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        stop_dryrun(proc)
+        raise RuntimeError(f"chip_smoke: the dry-run did not finish in {DRYRUN_TIMEOUT} s")
+    secs = time.perf_counter() - t0
+    log = out.with_suffix(".log").read_text()
+    check(proc.returncode == 0, f"the dry-run failed (exit {proc.returncode}): {log[-3000:]}")
+    cells = json.loads(out.read_text())
+    ok = [c for c in cells if c["status"].startswith("ok")]
+    check(len(cells) == DRYRUN_CELLS and len(ok) == len(cells),
+          f"dry-run: {len(ok)}/{len(cells)} cells ok, {DRYRUN_CELLS} expected")
+    ran = sum("roofline" in c for c in cells)
+    big = max(cells, key=lambda c: c["memory"]["argument_bytes_per_device"])
+    over = [f"{c['arch']}:{c['shape']}@{c['mesh']}" for c in cells if c["memory"]["over_80gb"]]
+    print(f"dryrun: {len(ok)}/{len(cells)} cells ok ({ran} ran on meta DTensors, the rest "
+          f"placed with the reason in their status), in {secs:.3f} s on the host; largest "
+          f"argument bytes per device {big['memory']['argument_gb_per_device']} GB "
+          f"({big['arch']}:{big['shape']} on {big['mesh']}); cells over 80 GB: "
+          f"{over or 'none'}")
+    shutil.rmtree(out.parent, ignore_errors=True)
+    return dict(seconds=secs, ok=len(ok), cells=len(cells), max_gb=big["memory"][
+        "argument_gb_per_device"], over=over)
+
+
+def mesh_decode(device, mesh, arch, batch: int, steps: int, what: str) -> dict:
+    """``arch``'s decode_32k at full width (its depth as given), batch cut to
+    ``batch``: ``steps`` greedy steps of ``build_step``'s bundle on the mesh
+    (decode_attention launches counted from 0), then the same steps through
+    the ``mesh=None`` step on the same parameters, cache and tokens; the
+    logits bit-equal or within ``decode_close``."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import transformer as tf
+
+    cfg = arch.config
+    shape = ShapeSpec("decode_32k", "decode", {"seq_len": LM_SEQ, "global_batch": batch})
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 71)
+    params = tf.init_params(gen, cfg)
+    cache = tf.init_cache(cfg, batch, LM_SEQ, device=device)
+    cache["k"].normal_(generator=gen)
+    cache["v"].normal_(generator=gen)
+    start = LM_SEQ - steps
+    cache["len"].fill_(start)
+    first = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen, device=device,
+                          dtype=torch.int32)
+    bundle = build_step(arch, shape, mesh)
+    plain = build_step(arch, shape, None)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    step = bundle.jitted()
+    # one untimed step warms the path (a process's first DTensor call imports
+    # and registers seconds of machinery); it writes slot `start` as step 0 will
+    _, warm_s = timed(lambda: step(params, cache, first))
+    tokens, got = [first], []
+    dak.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, out = step(params, cache, tokens[-1])
+        got.append(logits.to_local())
+        cache["len"] = out["len"].to_local()
+        tokens.append(got[-1].argmax(dim=-1, keepdim=True).to(torch.int32))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launches = dak.launches
+    check(launches == cfg.n_layers * steps,
+          f"mesh/{what}: decode_attention launches {launches} == {cfg.n_layers} x {steps}")
+    cache["len"] = torch.full((), start, dtype=torch.int32, device=device)
+    worst, equal, want = 0.0, True, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        logits, cache = plain.fn(params, cache, tokens[t])
+        want.append(logits)
+    torch.cuda.synchronize()
+    plain_s = (time.perf_counter() - t0) / steps
+    for t in range(steps):
+        equal = equal and torch.equal(got[t], want[t])
+        ok, err, ratio, _ = decode_close(got[t], want[t])
+        check(ok, f"mesh/{what}: step {t}'s logits {err} apart from the mesh=None step's")
+        worst = max(worst, err)
+    print(f"mesh/{what}: decode_32k through build_step on the (1, 1) mesh at full width "
+          f"({cfg.n_layers} layers, batch {batch} x {LM_SEQ}, cache drawn from a seed), "
+          f"{steps} greedy steps after a warm-up step ({warm_s:.3f} s): {step_s * 1e3:.3f} "
+          f"ms/step against {plain_s * 1e3:.3f} through the mesh=None step (host clock, "
+          f"synchronised), decode_attention launches {launches}; logits against the mesh=None "
+          f"step on the same parameters, cache and tokens: "
+          f"{'bit-equal' if equal else 'within decode_close'} (max abs {worst:.3e}); set up "
+          f"in {setup_s:.3f} s")
+    return dict(launches=launches, equal=equal, ms=step_s * 1e3, plain_ms=plain_s * 1e3)
+
+
+def mesh_train(device, mesh) -> dict:
+    """gemma-2b train_4k at full width, batch cut to TRAIN_BATCH: one step of
+    the bundle with ``act_seq_axis="model"`` and one without, each from the
+    same weights and fresh AdamW moments, deterministic: the losses and a
+    sample of the updated parameters equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import SyntheticLM, init_opt_state
+
+    arch = get_arch("gemma-2b")
+    shape = arch.shape("train_4k")
+    params = tf.init_params(torch.Generator(device=device).manual_seed(SEED + 73),
+                            arch.config).tree()
+    # the second step starts from these too (a copy even when params live on the CPU)
+    start = tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+    data = SyntheticLM(arch.config.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    batch = {"tokens": torch.from_numpy(data.batch(0)["tokens"]).to(device)}
+    rng = np.random.default_rng(SEED + 47)
+    idx = {name: torch.from_numpy(rng.integers(0, leaf(params).numel(), TRAIN_SAMPLE))
+           for name, leaf in TRAIN_ADAMW_LEAVES.items()}
+    out = {}
+    for name, opts in (("act_seq_axis", {"act_seq_axis": "model"}), ("plain", None)):
+        if name == "plain":
+            tree_map(lambda t, s: t.detach().copy_(s), params, start)
+        bundle = build_step(arch, shape, mesh, opts=opts)
+        with deterministic():
+            res, secs = timed(lambda: bundle.jitted()(params, init_opt_state(params), batch))
+        out[name] = (float(res[2]["loss"]), {k: leaf(params).detach().reshape(-1)[idx[k]].cpu()
+                                             for k, leaf in TRAIN_ADAMW_LEAVES.items()}, secs)
+        del res  # the moments
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"mesh/train/{name}: one step in {secs:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    (l_seq, s_seq, t_seq), (l_plain, s_plain, t_plain) = out["act_seq_axis"], out["plain"]
+    check(l_seq == l_plain and all(torch.equal(s_seq[k], s_plain[k]) for k in s_seq),
+          f"mesh/train: act_seq_axis's step != the plain step (loss {l_seq} against {l_plain})")
+    print(f"mesh/train: gemma-2b train_4k at full width through build_step, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, one AdamW step with opts act_seq_axis='model' "
+          f"({t_seq:.3f} s) and one without ({t_plain:.3f} s) from the same weights: loss "
+          f"{l_seq:.6f} both, {TRAIN_SAMPLE} sampled entries of {len(s_seq)} leaves bit-equal")
+    return dict(loss=l_seq)
+
+
+def mesh_two_tower(device, mesh) -> dict:
+    """two-tower serve_bulk at full width through build_step on the mesh
+    (embedding_bag launches counted from 0), held to the mesh=None serve."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import kernel as ebk
+    from repro_torch.launch.steps import build_step, recsys_fns
+    from repro_torch.models import recsys
+
+    arch = get_arch("two-tower-retrieval")
+    shape = arch.shape("serve_bulk")
+    gen = torch.Generator(device=device).manual_seed(SEED + 79)
+    params = recsys.init_two_tower(gen, arch.config)
+    batch = recsys_fns(arch, arch.config)[2](shape.dims["batch"], gen)
+    bundle = build_step(arch, shape, mesh)
+    ebk.launches = 0
+    (scores, secs) = timed(lambda: bundle.jitted()(params, batch))
+    launches = ebk.launches
+    scores = scores.to_local()
+    want = build_step(arch, shape, None).jitted()(params, batch)
+    check(launches == 2, f"mesh/two-tower: embedding_bag launches {launches} == 2")
+    check(torch.equal(scores, want) and bool(torch.isfinite(scores).all()),
+          "mesh/two-tower: serve_bulk's scores != the mesh=None serve's")
+    print(f"mesh/two-tower: serve_bulk (batch {shape.dims['batch']}) at full width through "
+          f"build_step on the mesh in {secs * 1e3:.3f} ms (host clock, synchronised, first "
+          f"call), embedding_bag launches {launches}; scores bit-equal to the mesh=None serve")
+    return dict(launches=launches)
+
+
+def mesh_gnn(device, mesh) -> dict:
+    """PNA full_graph_sm: one train step with ``dist_edges`` (forward_dist on
+    the mesh) and one without, from the same weights: the losses within
+    GNN_LOSS_RTOL (f32)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_step, gnn_batch
+    from repro_torch.models import gnn
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import init_opt_state
+
+    arch = get_arch("pna")
+    shape = arch.shape("full_graph_sm")
+    gen = torch.Generator(device=device).manual_seed(SEED + 83)
+    params = gnn.init_params(gen, arch.config)
+    batch = {k: v.to(device) for k, v in gnn_batch(arch, shape, gen).items()}
+    losses = {}
+    for name, opts in (("dist_edges", {"dist_edges": True}), ("plain", None)):
+        p = tree_map(lambda t: t.clone(), params)
+        _, _, res = build_step(arch, shape, mesh, opts=opts).jitted()(p, init_opt_state(p), batch)
+        losses[name] = float(res["loss"])
+    rel = abs(losses["dist_edges"] - losses["plain"]) / abs(losses["plain"])
+    check(np.isfinite(losses["plain"]) and rel <= GNN_LOSS_RTOL,
+          f"mesh/pna: dist_edges' loss {losses['dist_edges']} against {losses['plain']}")
+    print(f"mesh/pna: full_graph_sm train through build_step with dist_edges (forward_dist, "
+          f"one node shard) and without: losses {losses['dist_edges']:.7f} and "
+          f"{losses['plain']:.7f} ({rel:.2e} apart, within {GNN_LOSS_RTOL})")
+    return losses
+
+
+def phase_mesh(device):
+    """``build_step`` on a mesh of one rank (an nccl world of one): gemma-2b
+    and llama4-scout decode (the shard-local MoE) held to the mesh=None
+    path, gemma-2b's act_seq_axis train step, two-tower's serve_bulk and
+    PNA's dist_edges step held to the steps without them; the dry-run of
+    every cell on both production meshes runs beside them on the host."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    dry = start_dryrun()
+    out = {}
+    try:
+        mesh = mesh_world(device)
+        items = (
+            ("gemma-2b", lambda: mesh_decode(device, mesh, get_arch("gemma-2b"), LM_BATCH,
+                                             MESH_STEPS, "gemma-2b")),
+            ("llama4-scout-17b-a16e", lambda: mesh_decode(
+                device, mesh, dataclasses.replace(get_arch("llama4-scout-17b-a16e"), config=(
+                    dataclasses.replace(get_arch("llama4-scout-17b-a16e").config,
+                                        n_layers=LM_MOE[0][1]))),
+                LM_MOE[0][2], MESH_STEPS, "llama4-scout-17b-a16e")),
+            ("train", lambda: mesh_train(device, mesh)),
+            ("two-tower", lambda: mesh_two_tower(device, mesh)),
+            ("pna", lambda: mesh_gnn(device, mesh)),
+        )
+        for name, fn in items:
+            t = time.perf_counter()
+            out[name] = fn()
+            print(f"mesh/{name}: {time.perf_counter() - t:.3f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+    except BaseException:
+        stop_dryrun(dry[0])
+        raise
+    finally:
+        tf.set_moe_mesh(None)
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    t = time.perf_counter()
+    out["dryrun"] = finish_dryrun(*dry)
+    print(f"mesh/dryrun: waited {time.perf_counter() - t:.3f} s")
+    return out
+
+
 # -- phase 9: training: gemma-2b at full width, the CLI, the recsys losses -----
 
 
@@ -4102,6 +4417,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    mesh = phase("mesh", phase_mesh, device)
+    print(f"memory: peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated in phase "
+          f"mesh")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     train = phase("train", phase_train, device)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4152,7 +4473,8 @@ def main() -> int:
         name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/kernel.py:90",
         launches=lm_launches + g27["launches"] + glm["launches"] + l4["launches"]
-        + arc["launches"],
+        + arc["launches"] + mesh["gemma-2b"]["launches"]
+        + mesh["llama4-scout-17b-a16e"]["launches"],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
         # the other LMs' paths (phases lm/windowed and lm/moe): gemma2-27b's
@@ -4160,7 +4482,9 @@ def main() -> int:
         # llama4-scout's and arctic's layer 0
         launches_by_path={"gemma-2b": lm_launches, "gemma2-27b": g27["launches"],
                           "glm4-9b": glm["launches"], "llama4-scout-17b-a16e": l4["launches"],
-                          "arctic-480b": arc["launches"]},
+                          "arctic-480b": arc["launches"],
+                          "mesh/gemma-2b": mesh["gemma-2b"]["launches"],
+                          "mesh/llama4-scout-17b-a16e": mesh["llama4-scout-17b-a16e"]["launches"]},
         gemma2_27b_slice_ms=g27["slice_ms"], gemma2_27b_full_ms=g27["full_ms"],
         gemma2_27b_plain_ms=g27["plain_ms"], gemma2_27b_bound_ms=g27["bound_ms"],
         gemma2_27b_library_ms=g27["library_ms"],
@@ -4175,9 +4499,11 @@ def main() -> int:
     kernels.append(dict(
         name="embedding_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
         replaces="src/repro/kernels/embedding_bag/kernel.py:37",
-        launches=rec["launches"] + train["launches"],
+        launches=rec["launches"] + train["launches"] + mesh["two-tower"]["launches"],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
+        launches_by_path={"recsys": rec["launches"], "train": train["launches"],
+                          "mesh/two-tower": mesh["two-tower"]["launches"]},
     ))
     print(f"run: {time.perf_counter() - t_run:.3f} s after the card check")
     print(json.dumps({"kernels": kernels}))

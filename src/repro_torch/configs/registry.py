@@ -3,8 +3,8 @@
 The five LM architectures, PNA (the GNN family) and the four recsys
 architectures with their full published configurations, their reduced
 smoke configurations (CPU-runnable) and their input shapes, as the
-reference has them, with torch dtypes.  ``all_cells`` waits with the mesh
-(ROADMAP.md, Queue 1 item 12).
+reference has them, with torch dtypes, and :func:`all_cells`, the 40
+(arch, shape) pairs of the dry-run.
 """
 from __future__ import annotations
 
@@ -285,3 +285,10 @@ def get_arch(name: str) -> Arch:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def all_cells():
+    """Every (arch, shape) pair -- the 40 dry-run cells."""
+    for arch in ARCHS.values():
+        for shape in arch.shapes:
+            yield arch, shape

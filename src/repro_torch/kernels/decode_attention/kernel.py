@@ -17,7 +17,7 @@ the window slice, not over S: each block computes the slice's start from
 ``cur_len`` on the device and reads rows ``start + j`` (the batch stride
 stays S).  Without it every launch is as before.
 
-A tensor on the CPU runs the plain version
+A tensor on the CPU (or on ``meta``, the dry-run's shapes) runs the plain version
 (:func:`repro_torch.kernels.decode_attention.ref.decode_attention_plain`);
 a tensor on the card launches the kernel or raises.  :data:`launches`
 counts calls that launched the kernel (one per call: the split and the
@@ -194,7 +194,7 @@ def decode_attention(
     if window_slice is not None and (int(window_slice) < 1 or window is not None):
         raise ValueError(f"window_slice must be >= 1 and come without a window, got "
                          f"{window_slice} with window {window}")
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):  # meta: shapes only (the dry-run)
         return decode_attention_plain(q, k, v, cur_len, scale, softcap, window, window_slice)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")

@@ -7,7 +7,7 @@ op's zero-row padding around it with ``embedding_bag_kernel`` in
 sort and no copy of the table.  The source says what bounds it on an H100
 (bytes) and what the design does about it.
 
-A tensor on the CPU runs the plain version
+A tensor on the CPU (or on ``meta``, the dry-run's shapes) runs the plain version
 (:func:`repro_torch.kernels.embedding_bag.ref.embedding_bag_plain`); a
 tensor on the card launches the kernel or raises.  :data:`launches` counts
 kernel launches.
@@ -71,7 +71,7 @@ def embedding_bag(table: torch.Tensor, bags: torch.Tensor, mode: str = "sum") ->
     global launches
     check_args(table, bags, mode)
     dev = table.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):  # meta: shapes only (the dry-run)
         return embedding_bag_plain(table, bags, mode)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")

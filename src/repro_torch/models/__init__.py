@@ -1,9 +1,10 @@
 """Model stack of the port: the LM family's transformer, dense and MoE
-(:mod:`.transformer`: serving and ``loss_fn``) on the building blocks of
+(:mod:`.transformer`: serving and ``loss_fn``, the shard-local MoE and the
+sequence-parallel residual on a mesh) on the building blocks of
 :mod:`.common`, the GNN family's PNA (:mod:`.gnn`: forward, batched
-molecules, ``loss_fn``, the neighbour sampler) and the recsys family's
-models and losses (:mod:`.recsys`).  The mesh-bound paths wait (ROADMAP.md,
-Queue 1 item 12 part 4)."""
-from . import common, gnn, recsys, transformer
+molecules, ``loss_fn``, ``forward_dist``, the neighbour sampler), the
+recsys family's models and losses (:mod:`.recsys`), and the SPMD helpers
+that run them on DTensor inputs (:mod:`.spmd`)."""
+from . import common, gnn, recsys, spmd, transformer
 
-__all__ = ["common", "gnn", "recsys", "transformer"]
+__all__ = ["common", "gnn", "recsys", "spmd", "transformer"]

@@ -142,9 +142,49 @@ def tree_map(fn: Callable[..., Any], tree, *rest):
         return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a named tuple (OptState)
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
+    """:func:`tree_map` with each leaf's path: dict keys, list indices and a
+    named tuple's field names joined by ``/`` (``layers/attn/q``,
+    ``mu/embed``), as the reference's ``path_of`` spells a key path."""
+    if isinstance(tree, torch.nn.Module):
+        tree = tree.tree()
+    if tree is None:
+        return None
+    join = (lambda k: f"{prefix}/{k}") if prefix else str
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], join(k)) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, v, join(f))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, join(i)) for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+class _OnMeta(torch.overrides.TorchFunctionMode):
+    """Every tensor a function makes lands on ``meta``: a ``device`` it
+    names is replaced (factories without one follow ``torch.device``)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
+
+
+def meta_init(init_fn: Callable[..., Any], *args, **kwargs):
+    """``init_fn(generator, *args)``'s tree with every tensor on ``meta``:
+    the shapes and dtypes of the weights, none of their bytes (arctic's
+    ~960 GB tree included).  Meta kernels ignore the generator's draws."""
+    with torch.device("meta"), _OnMeta():
+        return init_fn(torch.Generator(), *args, **kwargs)
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -37,10 +37,11 @@ Shape regimes, as in the reference:
 
 Parameters are a plain dict (``{"encode", "layers": [{"msg", "upd"}],
 "decode"}``, the reference's tree); :func:`params_from_numpy` carries the
-JAX weights across for the tests.  :func:`partition_edges_by_dst`,
-:class:`NeighborSampler` and :func:`make_random_graph` are numpy copies of
-the reference's, with the same draws.  ``forward_dist`` needs a mesh and
-raises ``NotImplementedError``.
+JAX weights across for the tests.  :func:`forward_dist` is the vertex-cut
+forward over a mesh (nodes sharded, dst-partitioned edges, one all-gather
+per layer).  :func:`partition_edges_by_dst`, :class:`NeighborSampler` and
+:func:`make_random_graph` are numpy copies of the reference's, with the
+same draws.
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import spmd
 from .common import tensor_from_numpy, tree_map, truncated_normal
 
 Params = Any
@@ -187,12 +189,47 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: PNAConfig) -> t
     return nll.mean()
 
 
-def forward_dist(params, x, edge_index, cfg: PNAConfig, mesh, batch_axes):
-    """Vertex-cut PNA over a mesh: waits for the mesh (ROADMAP.md, Queue 1
-    item 12, part 4)."""
-    raise NotImplementedError(
-        "forward_dist (vertex-cut PNA over a mesh) is not ported to repro_torch yet "
-        "(ROADMAP.md, Queue 1 item 12)")
+def forward_dist(params: Params, x: torch.Tensor, edge_index: torch.Tensor, cfg: PNAConfig,
+                 mesh, batch_axes) -> torch.Tensor:
+    """Vertex-cut PNA over ``mesh``: nodes sharded over ``batch_axes``, each
+    shard owning the edges that point at its nodes (the layout of
+    :func:`partition_edges_by_dst`), so every segment reduction is
+    shard-local.  The one collective is an all-gather of the (N, d_hidden)
+    features per layer; its backward reduce-scatters, since each shard's
+    edges read the gathered rows differently.
+
+    ``x`` (N, d_in) and ``edge_index`` (2, E) are DTensors sharded on N and
+    E over the batch axes (the logits come back sharded so), or whole
+    tensors, of which each rank takes its block (the logits come back
+    whole).  Edges hold GLOBAL node ids; a shard maps its destinations to
+    local ids and sends any outside its block to a sink row.  Parameters
+    (plain or replicated DTensors) get gradients summed over the shards.
+    Without batch axes on the mesh this is :func:`forward`."""
+    names = tuple(mesh.mesh_dim_names) if mesh is not None else ()
+    axes = tuple(a for a in batch_axes if a in names)
+    if not axes:
+        return forward(params, x, edge_index, cfg)
+    dims = spmd.mesh_dims(mesh, axes)
+    placed = spmd.is_dtensor(x)
+    x_l = x.to_local() if placed else spmd._chunk(x, mesh, dims, 0)
+    ei_l = edge_index.to_local() if spmd.is_dtensor(edge_index) else spmd._chunk(
+        edge_index, mesh, dims, 1)
+    params = spmd.use_tree(params, dims)
+    n_local = x_l.shape[0]
+    n = n_local * spmd.group_size(mesh, dims)
+    src = _sink(ei_l[0], n)
+    dst = ei_l[1].to(torch.int64) - spmd.rank_in(mesh, dims) * n_local  # outside: the sink
+    h = x_l @ params["encode"].to(x_l.dtype)
+    for layer in params["layers"]:
+        h_full = F.pad(spmd.gather_partial(h, mesh, dims, 0), (0, 0, 0, 1))
+        msgs = h_full.index_select(0, src) @ layer["msg"].to(h.dtype)
+        agg = _pna_aggregate(torch.relu(msgs), dst, n_local, cfg.delta)
+        h_new = torch.cat([h, agg], dim=-1) @ layer["upd"].to(h.dtype)
+        h = h + torch.relu(h_new)
+    out = h @ params["decode"].to(h.dtype)
+    if placed:
+        return spmd.leave(out, spmd.Spmd(mesh, dims))
+    return spmd.gather_over(out, mesh, dims, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -22,12 +22,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.embedding_bag import embedding_bag_op
+from . import spmd
 from .common import tensor_from_numpy, truncated_normal
 
 Params = Any
@@ -38,6 +39,46 @@ Params = Any
 # ---------------------------------------------------------------------------
 
 
+class RowShard(NamedTuple):
+    """A table whose rows rest sharded over mesh dims (``RECSYS_RULES``'
+    ``Shard(0)`` over "model"): the rank's block of rows, the first row it
+    holds, the mesh and those dims."""
+
+    local: torch.Tensor
+    offset: int
+    mesh: Any
+    dims: Tuple[int, ...]
+
+
+def row_shard(table, partial_dims=()) -> Any:
+    """A DTensor table as :func:`embedding_bag` takes it on a mesh: a
+    :class:`RowShard` of the rank's rows where they are sharded, else the
+    whole table (:func:`~.spmd.use`); gradients ``Partial`` over
+    ``partial_dims``."""
+    if not spmd.is_dtensor(table):
+        return table
+    mesh = table.device_mesh
+    dims = tuple(d for d in spmd.sharded_dims(table, 0) if mesh.size(d) > 1)
+    local = spmd.use(table, partial_dims, shard={d: 0 for d in dims})
+    if not dims:
+        return local
+    return RowShard(local, spmd.rank_in(mesh, dims) * local.shape[0], mesh, dims)
+
+
+def _sharded_bag(table: RowShard, indices: torch.Tensor, mode: str, use_kernel: bool):
+    """Each rank sums the rows of its block that the bags name (ids outside
+    it become pads), the sums are all-reduced over the table's dims, and
+    ``mean`` divides by the bag's count after."""
+    ids = indices.to(torch.int64) - table.offset
+    ids = torch.where((indices >= 0) & (ids >= 0) & (ids < table.local.shape[0]), ids, -1)
+    out = embedding_bag_op(table.local, ids.contiguous(), "sum", use_kernel=use_kernel)
+    out = spmd.sum_over(out, table.mesh, table.dims)
+    if mode == "mean":
+        count = (indices >= 0).sum(dim=1, dtype=torch.int32).clamp(min=1).float()
+        out = (out.float() / count[:, None]).to(out.dtype)
+    return out
+
+
 def embedding_bag(
     table: torch.Tensor,  # (V, D)
     indices: torch.Tensor,  # (B, L) int32, padded with -1
@@ -45,7 +86,12 @@ def embedding_bag(
     use_kernel: bool = True,
 ) -> torch.Tensor:
     """Multi-hot bag lookup: per bag, the sum, mean or max of the rows its
-    non-negative ids name (zeros for a bag of pads)."""
+    non-negative ids name (zeros for a bag of pads).  ``table`` may be a
+    :class:`RowShard` (sum and mean)."""
+    if isinstance(table, RowShard):
+        if mode not in ("sum", "mean"):
+            raise ValueError(f"a row-sharded table takes sum or mean bags, not {mode!r}")
+        return _sharded_bag(table, indices, mode, use_kernel)
     if mode in ("sum", "mean"):
         return embedding_bag_op(table, indices, mode, use_kernel=use_kernel)
     if mode == "max":
@@ -144,14 +190,22 @@ def two_tower_item(params: Params, item_feats: torch.Tensor, cfg: TwoTowerConfig
 
 
 def two_tower_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: TwoTowerConfig,
-                   use_kernel: bool = True) -> torch.Tensor:
-    """Sampled softmax with in-batch negatives (the standard recipe)."""
+                   use_kernel: bool = True, ctx: Optional[spmd.Spmd] = None) -> torch.Tensor:
+    """Sampled softmax with in-batch negatives (the standard recipe).  On a
+    mesh (``ctx``: the batch's rows are the rank's own) each rank scores its
+    users against the whole batch's items, gathered, and the ranks' means
+    are averaged."""
     u = two_tower_user(params, batch["user_feats"], cfg, use_kernel)  # (B, d)
     i = two_tower_item(params, batch["item_feats"], cfg, use_kernel)  # (B, d)
+    first = 0
+    if ctx is not None:
+        i = spmd.gather_partial(i, ctx.mesh, ctx.batch_dims, 0)
+        first = spmd.rank_in(ctx.mesh, ctx.batch_dims) * u.shape[0]
     logits = (u @ i.T).float() / 0.05  # (B, B), temperature
-    labels = torch.arange(u.shape[0], device=u.device)
+    labels = torch.arange(first, first + u.shape[0], device=u.device)
     logp = torch.log_softmax(logits, dim=-1)
-    return -logp.gather(1, labels[:, None]).mean()
+    loss = -logp.gather(1, labels[:, None]).mean()
+    return loss if ctx is None else spmd.mean_over(loss, ctx.mesh, ctx.batch_dims)
 
 
 def two_tower_score_candidates(

@@ -45,16 +45,30 @@ graph-shaped) or ``"ragged"`` (dropless, one product per non-empty group;
 it reads the group sizes on the host).  ``forward`` returns the layers'
 mean Switch aux and ``loss_fn`` adds ``router_aux_weight`` times it.
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md, Queue 1
-item 12 part 4, with the mesh): the shard-local MoE over a mesh
-(``moe_batch_axes``) and the sequence-parallel residual (``act_seq_axis``).
-``set_moe_mesh`` keeps its handle as the reference's does.  ``kv_quant`` is
-a field the reference declares and never reads; the port does the same.
+On a mesh (DTensor tokens and parameters, placed by
+``repro_torch.launch.steps.build_step``) each rank computes on its batch
+rows with every parameter gathered whole (:mod:`.spmd`), except the
+reference's two mesh paths.  The shard-local MoE (``moe_batch_axes``):
+routing, top-k and the slot sort local to each batch shard, the experts'
+``wi``/``wo`` gathered over ``moe_fsdp_axes`` for each layer, the FFN
+tensor-parallel over ``moe_tp_axis`` (F sliced, the output summed), the
+aux the mean of the shards' auxes; tokens not sharded over the batch axes
+are padded to the shard count, as the reference pads them.  The
+sequence-parallel residual (``act_seq_axis``): between layers each rank
+keeps its chunk of S (a checkpointed layer saves it), with the values of
+the step without it.  A KV cache resting sharded on S or Hkv (the
+reference's split-KV decode) is gathered a layer at a time for the
+kernel's full read, and each rank writes back its part.
+``set_moe_mesh`` sets the mesh those paths read, as the reference's
+trace-time handle.  ``kv_quant`` is a field the reference declares and
+never reads; the port does the same.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import re
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -63,17 +77,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attention import decode_attention_op
+from . import spmd
 from .common import (ACTIVATIONS, apply_rope, cross_entropy, dense, rmsnorm, softcap,
-                     tensor_from_numpy, top_k_ids, truncated_normal)
+                     tensor_from_numpy, top_k_ids, tree_leaves, truncated_normal)
 
 NEG_INF = -1e30
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1 item 12 part 4: "
-        f"the mesh)"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,40 +200,19 @@ class ParamTree(nn.Module):
         return out
 
 
-def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None and cfg.moe_batch_axes is not None:
-        raise _not_ported("the shard-local MoE over a mesh (moe_batch_axes)")
-    if cfg.act_seq_axis is not None:
-        raise _not_ported("the sequence-parallel residual (_constrain_residual)")
-
-
-def init_params(generator: torch.Generator, cfg: TransformerConfig) -> ParamTree:
-    """Seeded random weights on the generator's device, with the
-    reference's shapes, names and scales (``init_params``, ``init_layer``).
-    Stacked tensors are drawn a layer at a time, and the experts' an expert
-    at a time, so the f32 draw never holds more than one layer's tensor or
-    one expert's (a layer of arctic's ``wi`` is 35.7 GB in f32)."""
-    dev = generator.device
+def _layout(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The parameter tree as ``(how, shape, std, dtype)`` leaves, the
+    reference's shapes, names and scales (``init_params``, ``init_layer``):
+    ``how`` is ``"tn"`` (one truncated normal), ``"stacked"`` (one per
+    layer), ``"experts"`` (one per layer and expert) or ``"zeros"``; shapes
+    are the whole leaf's."""
     d, hd, n_l, dt = cfg.d_model, cfg.head_dim, cfg.n_layers, cfg.dtype
 
-    def tn(shape, std, dtype=dt):
-        return truncated_normal(shape, std, dtype, generator, dev)
-
     def stacked(shape, std, dtype=dt):
-        out = torch.empty((n_l, *shape), dtype=dtype, device=dev)
-        for i in range(n_l):
-            out[i] = tn(shape, std, dtype)
-        return out
-
-    def per_expert(shape, std):
-        out = torch.empty((n_l, cfg.moe.n_experts, *shape), dtype=dt, device=dev)
-        for i in range(n_l):
-            for e in range(cfg.moe.n_experts):
-                out[i, e] = tn(shape, std)
-        return out
+        return ("stacked", (n_l, *shape), std, dtype)
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
+        return ("zeros", shape, 0.0, dt)
 
     attn = {
         "q": stacked((d, cfg.n_heads * hd), d**-0.5),
@@ -247,8 +234,8 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig) -> ParamTree
         # wi (E, D, 2, F): gate and up on an axis of their own, as the reference's
         layers["moe"] = {
             "router": stacked((d, m.n_experts), d**-0.5, torch.float32),
-            "wi": per_expert((d, 2, m.d_ff), d**-0.5),
-            "wo": per_expert((m.d_ff, d), m.d_ff**-0.5),
+            "wi": ("experts", (n_l, m.n_experts, d, 2, m.d_ff), d**-0.5, dt),
+            "wo": ("experts", (n_l, m.n_experts, m.d_ff, d), m.d_ff**-0.5, dt),
         }
     ff = cfg.d_ff if m is None else m.dense_residual_ff
     if ff:
@@ -260,13 +247,50 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig) -> ParamTree
         layers["post_attn_norm"] = {"scale": zeros(n_l, d)}
         layers["post_mlp_norm"] = {"scale": zeros(n_l, d)}
     tree: Dict[str, Any] = {
-        "embed": tn((cfg.vocab_size, d), 1.0),
+        "embed": ("tn", (cfg.vocab_size, d), 1.0, dt),
         "layers": layers,
         "final_norm": {"scale": zeros(d)},
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = tn((d, cfg.vocab_size), d**-0.5)
-    return ParamTree(tree)
+        tree["lm_head"] = ("tn", (d, cfg.vocab_size), d**-0.5, dt)
+    return tree
+
+
+def _build(layout, leaf) -> Dict[str, Any]:
+    return {k: _build(v, leaf) if isinstance(v, dict) else leaf(*v) for k, v in layout.items()}
+
+
+def init_params(generator: torch.Generator, cfg: TransformerConfig) -> ParamTree:
+    """Seeded random weights on the generator's device, with the
+    reference's shapes, names and scales (``init_params``, ``init_layer``).
+    Stacked tensors are drawn a layer at a time, and the experts' an expert
+    at a time, so the f32 draw never holds more than one layer's tensor or
+    one expert's (a layer of arctic's ``wi`` is 35.7 GB in f32)."""
+    dev = generator.device
+
+    def leaf(how, shape, std, dtype):
+        if how == "zeros":
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        if how == "tn":
+            return truncated_normal(shape, std, dtype, generator, dev)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        lead = shape[:1] if how == "stacked" else shape[:2]
+        for i in np.ndindex(*lead):
+            out[i] = truncated_normal(shape[len(lead):], std, dtype, generator, dev)
+        return out
+
+    layout = _layout(cfg)
+    layers = _build(layout["layers"], leaf)  # drawn before the embeddings, as ever
+    return ParamTree({k: layers if k == "layers" else (_build(v, leaf) if isinstance(v, dict)
+                                                        else leaf(*v))
+                      for k, v in layout.items()})
+
+
+def abstract_params(cfg: TransformerConfig) -> ParamTree:
+    """:func:`init_params`' tree on ``meta``: shapes and dtypes without
+    bytes or draws (the reference's ``jax.eval_shape`` of its init)."""
+    return ParamTree(_build(_layout(cfg), lambda how, shape, std, dtype: torch.empty(
+        shape, dtype=dtype, device="meta")))
 
 
 def params_from_numpy(tree: Dict[str, Any], device="cuda") -> ParamTree:
@@ -292,7 +316,8 @@ def _layers(params: ParamTree, n_layers: int):
     def layer(t, i):
         return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in t.items()}
 
-    stacked = unbound(params["layers"].tree())
+    layers = params["layers"]
+    stacked = unbound(layers.tree() if isinstance(layers, nn.Module) else layers)
     return [layer(stacked, i) for i in range(n_layers)]
 
 
@@ -458,22 +483,29 @@ def _ragged_ffn(xs: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
     return torch.cat(outs)
 
 
-def _moe_local(x: torch.Tensor, router, wi, wo, cfg: TransformerConfig):
-    """The reference's single-shard MoE body (``tp_axis=None``): x (T, D),
-    router (D, E), wi (E, D, 2, F), wo (E, F, D) -> ``(out (T, D) in x's
-    dtype, the Switch aux: E * sum(fraction routed first * mean prob))``.
+def _moe_local(x: torch.Tensor, router, wi, wo, cfg: TransformerConfig, tp=None):
+    """The reference's shard-local MoE body: x (T, D), router (D, E), wi
+    (E, D, 2, F), wo (E, F, D) -> ``(out (T, D) in x's dtype, the Switch
+    aux: E * sum(fraction routed first * mean prob))``.
 
     The slots (token, choice) are sorted by expert with a stable sort, so
     an expert's slots keep token order; the FFN output is scattered back to
-    slot order and summed over the k choices with the routing weights."""
+    slot order and summed over the k choices with the routing weights.
+    With ``tp = (mesh, dims)`` the experts' F is the rank's slice, and the
+    FFN's output is summed over those mesh dims (the reference's ``psum``
+    over ``tp_axis``)."""
     m = cfg.moe
     probs, weights, experts = _route(x, router, cfg)
     flat = experts.reshape(-1)
     order = torch.sort(flat, stable=True).indices
     xs = x.index_select(0, order // m.top_k)
+    if tp is not None:
+        xs = spmd.tp_enter(xs, *tp)
     sizes = _group_sizes(flat, m.n_experts)
     ffn = _ragged_ffn if m.impl == "ragged" else _capacity_grouped_ffn
     y = ffn(xs, wi, wo, sizes, cfg)
+    if tp is not None:
+        y = spmd.sum_over(y, *tp)
     unsorted = torch.zeros_like(y).index_copy(0, order, y)
     out = (unsorted.reshape(x.shape[0], m.top_k, -1) * weights[..., None].to(y.dtype)).sum(dim=1)
     frac = _group_sizes(experts[:, 0], m.n_experts).float() / x.shape[0]
@@ -481,14 +513,65 @@ def _moe_local(x: torch.Tensor, router, wi, wo, cfg: TransformerConfig):
     return out.to(x.dtype), aux
 
 
-def _moe_ffn(moe_p, x: torch.Tensor, cfg: TransformerConfig):
-    """The MoE on one device: ``_moe_local`` over all of x's tokens."""
-    return _moe_local(x, moe_p["router"], moe_p["wi"], moe_p["wo"], cfg)
+def _moe_ffn(moe_p, x: torch.Tensor, cfg: TransformerConfig, batch_dims=()):
+    """The MoE over x's (T, D) tokens: ``_moe_local`` over all of them
+    without ``cfg.moe_batch_axes``, else the shard-local MoE on the mesh of
+    :func:`set_moe_mesh`.  ``batch_dims`` are the mesh dims over which x's
+    rows are already the rank's own (the step's batch sharding)."""
+    if cfg.moe_batch_axes is None:
+        return _moe_local(x, spmd.use(moe_p["router"], batch_dims),
+                          spmd.use(moe_p["wi"], batch_dims), spmd.use(moe_p["wo"], batch_dims),
+                          cfg)
+    return _moe_sharded(moe_p, x, cfg, tuple(batch_dims))
 
 
-# The reference's trace-time mesh handle for the shard-local MoE and the
-# sequence-parallel residual, kept for its callers; nothing ported reads it
-# yet (those paths wait with the mesh).
+def _experts(w, mesh, bdims, tdims, f_dim: int):
+    """An expert weight as the MoE body takes it: whole over the expert
+    axis (gathered over the FSDP axes it rests on, its gradient
+    reduce-scattered back) and the rank's slice of F over the tensor-
+    parallel dims.  A plain tensor is sliced."""
+    if spmd.is_dtensor(w):
+        return spmd.use(w, bdims, shard={d: f_dim for d in tdims})
+    return spmd._chunk(w, mesh, tdims, f_dim)
+
+
+def _moe_sharded(moe_p, x: torch.Tensor, cfg: TransformerConfig, batch_dims):
+    """The reference's shard_map'd MoE: routing, top-k and the slot sort
+    local to each shard of ``cfg.moe_batch_axes``; the experts' ``wi``/``wo``
+    gathered over ``cfg.moe_fsdp_axes`` for this layer; the expert FFN
+    tensor-parallel over ``cfg.moe_tp_axis`` (F sliced, the output summed);
+    the aux the mean of the shards' auxes (the reference's ``pmean`` over
+    the batch axes; its ``pmean`` over tp averages equal values).
+
+    Tokens not already sharded over the batch axes (a decode batch that
+    does not divide) are padded with zero rows to the shard count and each
+    shard takes its block: the pads route like any token, count in the
+    aux, and are cut after the output is gathered back."""
+    mesh = get_moe_mesh()
+    bdims = spmd.mesh_dims(mesh, cfg.moe_batch_axes)
+    tdims = spmd.mesh_dims(mesh, (cfg.moe_tp_axis,)) if cfg.moe_tp_axis else ()
+    t = x.shape[0]
+    split = set(batch_dims) != set(bdims)
+    if split:
+        if batch_dims:
+            raise ValueError(f"tokens sharded over mesh dims {batch_dims}, the MoE's batch "
+                             f"axes are {cfg.moe_batch_axes}")
+        pad = (-t) % spmd.group_size(mesh, bdims)
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+        x = spmd.chunk_over(x, mesh, bdims, 0)
+    router = spmd.use(moe_p["router"], bdims)
+    wi = _experts(moe_p["wi"], mesh, bdims, tdims, 3)
+    wo = _experts(moe_p["wo"], mesh, bdims, tdims, 1)
+    out, aux = _moe_local(x, router, wi, wo, cfg, (mesh, tdims) if tdims else None)
+    aux = spmd.mean_over(aux, mesh, bdims)
+    if split:
+        out = spmd.gather_over(out, mesh, bdims, 0)[:t]
+    return out, aux
+
+
+# Mesh handle for the shard-local MoE and the sequence-parallel residual
+# (set by the step builders, as the reference's trace-time handle).
 _MOE_MESH = None
 
 
@@ -508,7 +591,7 @@ def get_moe_mesh():
     return _MOE_MESH
 
 
-def _finish(layer, x, attn, cfg: TransformerConfig):
+def _finish(layer, x, attn, cfg: TransformerConfig, batch_dims=()):
     """The rest of a layer after attention: output projection, post norm,
     residual, then the FFN block (the MoE, plus the dense residual FFN when
     the config has one): ``(x, aux)``."""
@@ -519,7 +602,7 @@ def _finish(layer, x, attn, cfg: TransformerConfig):
     x = x + attn
     h = rmsnorm(layer["pre_mlp_norm"]["scale"], x, cfg.norm_eps)
     if cfg.moe is not None:
-        y, aux = _moe_ffn(layer["moe"], h.reshape(b * s, -1), cfg)
+        y, aux = _moe_ffn(layer["moe"], h.reshape(b * s, -1), cfg, batch_dims=batch_dims)
         y = y.reshape(b, s, -1)
         if cfg.moe.dense_residual_ff:
             y = y + _dense_ffn(layer["mlp"], h, cfg)
@@ -540,6 +623,7 @@ def layer_forward(
     v_cache: Optional[torch.Tensor] = None,
     cache_len: Optional[torch.Tensor] = None,
     use_kernel: bool = True,
+    batch_dims: Tuple[int, ...] = (),
 ):
     """One decoder layer; returns ``(x, aux, new_cache)``.  In decode mode
     (caches given) x is (B, 1, D); the new K/V are written into the caches
@@ -548,11 +632,13 @@ def layer_forward(
     ``decode_attention_op`` over the whole (B, S, Hkv, d) buffer, or with
     ``cfg.decode_window_slice`` on a local layer over the slice of
     ``min(window, S)`` keys that ends at ``cache_len`` (the window mask
-    then holds by construction, as in the reference)."""
+    then holds by construction, as in the reference).  ``batch_dims``: the
+    mesh dims x's rows are sharded over (the shard-local MoE reads them)."""
     h = rmsnorm(layer["pre_attn_norm"]["scale"], x, cfg.norm_eps)
     q, k, v = _qkv(layer, h, cfg, positions)
     if k_cache is None:
-        return (*_finish(layer, x, _attend(q, k, v, cfg, positions, is_local), cfg), None)
+        attn = _attend(q, k, v, cfg, positions, is_local)
+        return (*_finish(layer, x, attn, cfg, batch_dims), None)
     slot = cache_len.clamp(0, k_cache.shape[1] - 1).long().reshape(1)
     k_cache.index_copy_(1, slot, k)
     v_cache.index_copy_(1, slot, v)
@@ -562,7 +648,7 @@ def layer_forward(
         cfg.window if is_local and not sliced else None, use_kernel=use_kernel,
         window_slice=cfg.window if sliced else None,
     )
-    return (*_finish(layer, x, attn, cfg), (k_cache, v_cache))
+    return (*_finish(layer, x, attn, cfg, batch_dims), (k_cache, v_cache))
 
 
 def _embed(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
@@ -583,22 +669,68 @@ def _unembed(params: ParamTree, x: torch.Tensor, cfg: TransformerConfig) -> torc
     return softcap(logits.float(), cfg.final_logit_softcap)
 
 
-def _hidden_aux(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig):
-    """``(hidden(...), the layers' mean MoE aux)``."""
-    _check_supported(cfg)
+_EXPERTS = re.compile(r"moe/w[io]$")
+
+
+def _enter(params, tokens):
+    """``(ctx, params, tokens)`` for a rank's local compute: with DTensor
+    tokens (or parameters) ``ctx`` is the step's :class:`~.spmd.Spmd`, the
+    tokens the rank's rows, and every parameter gathered whole but the
+    experts (the shard-local MoE takes those).  Plain inputs pass through
+    with ``ctx`` None."""
+    ctx, tokens = spmd.enter(tokens)
+    if ctx is None:
+        mesh = spmd.mesh_of(params)
+        if mesh is None:
+            return None, params, tokens
+        ctx = spmd.Spmd(mesh, ())
+    return ctx, spmd.use_tree(params, ctx.batch_dims, skip=_EXPERTS.search), tokens
+
+
+def _seq_axis(cfg: TransformerConfig):
+    """``(mesh, dims)`` of the sequence-parallel residual, or None."""
+    if cfg.act_seq_axis is None:
+        return None
+    mesh = get_moe_mesh()
+    return mesh, spmd.mesh_dims(mesh, (cfg.act_seq_axis,))
+
+
+def _seq_parallel_layer(seq, layer, x, cfg, positions, is_local, batch_dims):
+    """A layer between two residuals sharded on S over ``seq``'s dims: the
+    rank's chunk is gathered, the layer runs, and the rank keeps its chunk
+    of the output."""
+    x = spmd.gather_over(x, *seq, 1)
+    x, aux, _ = layer_forward(layer, x, cfg, positions, is_local, batch_dims=batch_dims)
+    return spmd.chunk_over(x, *seq, 1), aux, None
+
+
+def _hidden_aux(params, tokens: torch.Tensor, cfg: TransformerConfig, batch_dims=()):
+    """``(hidden(...), the layers' mean MoE aux)`` of local tokens.
+
+    With ``cfg.act_seq_axis`` the residual stream between layers is
+    sharded on S over that mesh axis (the reference's
+    ``_constrain_residual``): each rank keeps S / n positions of it, so a
+    checkpointed layer saves a chunk; the values are those without it."""
     x = _embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)
     loc = cfg.layer_is_local()
     remat = cfg.remat and torch.is_grad_enabled() and any(
-        p.requires_grad for p in params.parameters())
+        p.requires_grad for p in tree_leaves(params))
+    seq = _seq_axis(cfg)
+    layer_fn = layer_forward
+    if seq is not None:
+        x = spmd.chunk_over(x, *seq, 1)
+        layer_fn = functools.partial(_seq_parallel_layer, seq)
     auxes = []
     for i, layer in enumerate(_layers(params, cfg.n_layers)):
         if remat:
-            x, aux, _ = checkpoint(layer_forward, layer, x, cfg, positions, bool(loc[i]),
-                                   use_reentrant=False)
+            x, aux, _ = checkpoint(layer_fn, layer, x, cfg, positions, bool(loc[i]),
+                                   batch_dims=batch_dims, use_reentrant=False)
         else:
-            x, aux, _ = layer_forward(layer, x, cfg, positions, bool(loc[i]))
+            x, aux, _ = layer_fn(layer, x, cfg, positions, bool(loc[i]), batch_dims=batch_dims)
         auxes.append(aux)
+    if seq is not None:
+        x = spmd.gather_over(x, *seq, 1)
     return rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps), torch.stack(auxes).mean()
 
 
@@ -606,22 +738,38 @@ def hidden(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig) -> t
     """The final-normed residual stream (B, S, D) of ``tokens`` (B, S).
     With ``cfg.remat``, when a gradient is being taken (gradients enabled,
     parameters that require them), each layer is checkpointed: its
-    activations are recomputed in the backward pass."""
-    return _hidden_aux(params, tokens, cfg)[0]
+    activations are recomputed in the backward pass.  DTensor inputs give
+    the rank's rows as a DTensor sharded like the tokens."""
+    ctx, params, tokens = _enter(params, tokens)
+    return spmd.leave(_hidden_aux(params, tokens, cfg, _dims(ctx))[0], ctx)
+
+
+def _dims(ctx) -> Tuple[int, ...]:
+    return ctx.batch_dims if ctx is not None else ()
 
 
 def forward(params: ParamTree, tokens: torch.Tensor, cfg: TransformerConfig):
     """tokens (B, S) -> (logits (B, S, V) f32, aux): the reference's forward
-    (aux the layers' mean MoE aux, 0 without MoE)."""
-    x, aux = _hidden_aux(params, tokens, cfg)
-    return _unembed(params, x, cfg), aux
+    (aux the layers' mean MoE aux, 0 without MoE).  On a mesh (DTensor
+    tokens or parameters) the logits are a DTensor sharded like the tokens
+    and the aux a plain tensor, equal on every rank."""
+    ctx, params, tokens = _enter(params, tokens)
+    x, aux = _hidden_aux(params, tokens, cfg, _dims(ctx))
+    return spmd.leave(_unembed(params, x, cfg), ctx), aux
 
 
 def loss_fn(params: ParamTree, batch: Dict[str, torch.Tensor], cfg: TransformerConfig) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S), plus
-    ``router_aux_weight`` times the aux with MoE: a 0-d f32 tensor."""
-    logits, aux = forward(params, batch["tokens"], cfg)
-    loss = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+    ``router_aux_weight`` times the aux with MoE: a 0-d f32 tensor.  On a
+    mesh each rank's mean over its rows is averaged over the batch dims:
+    the same value on every rank, and gradients that sum to the whole
+    batch's."""
+    ctx, params, tokens = _enter(params, batch["tokens"])
+    logits, aux = _hidden_aux(params, tokens, cfg, _dims(ctx))
+    logits = _unembed(params, logits, cfg)
+    loss = cross_entropy(logits[:, :-1], tokens[:, 1:])
+    if ctx is not None:
+        loss = spmd.mean_over(loss, ctx.mesh, ctx.batch_dims)
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * aux
     return loss
@@ -641,6 +789,48 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int, device="cuda") 
     }
 
 
+class _CacheView:
+    """A KV cache DTensor (L, B, S, Hkv, d) seen by one rank: layer i's
+    buffer over the rank's batch rows, whole in S and Hkv.  Where the cache
+    rests sharded only on B (or not at all) that is the rank's block
+    itself, written in place; where it is sharded on S or Hkv too (the
+    reference's split-KV decode), the layer's block is gathered for the
+    step and the rank's part written back after it."""
+
+    def __init__(self, cache):
+        from torch.distributed.tensor import Replicate, Shard
+
+        self.local = cache.to_local()
+        self.mesh = mesh = cache.device_mesh
+        # a mesh dim of size 1 splits nothing: the rank's block is whole there
+        self.layer_pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) and mesh.size(i) > 1
+                              else Replicate() for i, p in enumerate(cache.placements))
+        self.full_pl = tuple(p if p == Shard(0) else Replicate() for p in self.layer_pl)
+        self.shape = tuple(cache.shape[1:])
+
+    @property
+    def in_place(self) -> bool:
+        return self.layer_pl == self.full_pl
+
+    def layer(self, i: int) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+
+        if self.in_place:
+            return self.local[i]
+        dt = DTensor.from_local(self.local[i], self.mesh, self.layer_pl, shape=self.shape,
+                                stride=spmd.strides(self.shape), run_check=False)
+        return dt.redistribute(self.mesh, self.full_pl).to_local()
+
+    def write_back(self, i: int, full: torch.Tensor) -> None:
+        from torch.distributed.tensor import DTensor
+
+        if self.in_place:
+            return
+        dt = DTensor.from_local(full, self.mesh, self.full_pl, shape=self.shape,
+                                stride=spmd.strides(self.shape), run_check=False)
+        self.local[i].copy_(dt.redistribute(self.mesh, self.layer_pl).to_local())
+
+
 def decode_step(
     params: ParamTree,
     cache: Dict[str, torch.Tensor],
@@ -651,20 +841,36 @@ def decode_step(
     """One decode step: append the token, attend over the cache, return
     ``(logits (B, V) f32, cache)``.  The returned cache holds the same K/V
     tensors, updated in place, and a new ``len`` = ``len + 1``.
-    ``use_kernel=False`` runs the plain decode attention (a comparison)."""
-    _check_supported(cfg)
+    ``use_kernel=False`` runs the plain decode attention (a comparison).
+
+    On a mesh (DTensor tokens, cache and parameters) each rank decodes its
+    batch rows against its view of the cache (:class:`_CacheView`); the
+    logits come back sharded like the tokens, the cache as it was placed."""
+    ctx, params, tokens = _enter(params, tokens)
+    views = None
     cur = cache["len"]
+    if spmd.is_dtensor(cache["k"]):
+        views = _CacheView(cache["k"]), _CacheView(cache["v"])
+        cur = cur.to_local() if spmd.is_dtensor(cur) else cur
     x = _embed(params, tokens, cfg)
     positions = cur.reshape(1)
     loc = cfg.layer_is_local()
     for i, layer in enumerate(_layers(params, cfg.n_layers)):
+        k_i, v_i = (views[0].layer(i), views[1].layer(i)) if views else (cache["k"][i],
+                                                                          cache["v"][i])
         x, _, _ = layer_forward(
-            layer, x, cfg, positions, bool(loc[i]), k_cache=cache["k"][i],
-            v_cache=cache["v"][i], cache_len=cur, use_kernel=use_kernel,
+            layer, x, cfg, positions, bool(loc[i]), k_cache=k_i, v_cache=v_i, cache_len=cur,
+            use_kernel=use_kernel, batch_dims=_dims(ctx),
         )
+        if views:
+            views[0].write_back(i, k_i)
+            views[1].write_back(i, v_i)
     x = rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps)
     logits = _unembed(params, x, cfg)
-    return logits[:, 0], {"k": cache["k"], "v": cache["v"], "len": cur + 1}
+    new_len = cur + 1
+    if spmd.is_dtensor(cache["len"]):
+        new_len = spmd.leave(new_len, ctx, replicated=True)
+    return spmd.leave(logits[:, 0], ctx), {"k": cache["k"], "v": cache["v"], "len": new_len}
 
 
 def prefill(
@@ -674,8 +880,10 @@ def prefill(
     max_len: Optional[int] = None,
 ):
     """Process a full prompt, building the KV cache: ``(logits of the last
-    position (B, V) f32, cache)`` with ``max_len`` slots (default S)."""
-    _check_supported(cfg)
+    position (B, V) f32, cache)`` with ``max_len`` slots (default S).  On a
+    mesh the logits and the cache's K/V are DTensors sharded on B like the
+    tokens (the step builder places the cache as its rule says)."""
+    ctx, params, tokens = _enter(params, tokens)
     b, s = tokens.shape
     max_len = max_len or s
     x = _embed(params, tokens, cfg)
@@ -685,9 +893,23 @@ def prefill(
     for i, layer in enumerate(_layers(params, cfg.n_layers)):
         h = rmsnorm(layer["pre_attn_norm"]["scale"], x, cfg.norm_eps)
         q, k, v = _qkv(layer, h, cfg, positions)
-        x, _ = _finish(layer, x, _attend(q, k, v, cfg, positions, bool(loc[i])), cfg)
+        attn = _attend(q, k, v, cfg, positions, bool(loc[i]))
+        x, _ = _finish(layer, x, attn, cfg, _dims(ctx))
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     x = rmsnorm(params["final_norm"]["scale"], x[:, -1:], cfg.norm_eps)
     cache["len"].fill_(s)
-    return _unembed(params, x, cfg)[:, 0], cache
+    logits = _unembed(params, x, cfg)[:, 0]
+    if ctx is not None:
+        cache = {"k": _leave_cache(cache["k"], ctx), "v": _leave_cache(cache["v"], ctx),
+                 "len": spmd.leave(cache["len"], ctx, replicated=True)}
+    return spmd.leave(logits, ctx), cache
+
+
+def _leave_cache(local: torch.Tensor, ctx) -> torch.Tensor:
+    """A rank's (L, B_local, S, Hkv, d) cache block as a DTensor sharded on
+    B like the step's batch."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    pl = [Shard(1) if d in ctx.batch_dims else Replicate() for d in range(ctx.mesh.ndim)]
+    return DTensor.from_local(local, ctx.mesh, pl, run_check=False)

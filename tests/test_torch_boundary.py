@@ -58,6 +58,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "from repro_torch.kernels.cache_ops import probe_and_commit_ref, serve_fused_ref\n"
         "from repro_torch.kernels.cache_ops import resolve_conflicts\n"
         "from repro_torch.launch.steps import build_gnn_step\n"
+        "import repro_torch.launch.shardings, repro_torch.launch.dryrun, repro_torch.models.spmd\n"
+        "from repro_torch.launch import StepBundle, build_step, input_specs\n"
+        "from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh\n"
+        "from repro_torch.configs import all_cells\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -80,14 +84,9 @@ def test_no_import_line_names_jax_or_repro():
             assert not _IMPORT.match(line), f"{path.relative_to(ROOT)}:{n}: {line}"
 
 
-#: what stays unported (ROADMAP.md, Queue 1 item 12 part 4): the mesh,
-#: shardings and dry-run names; the shard-local MoE and ``forward_dist`` are
-#: in no ``__all__`` (both raise)
-NOT_YET = {
-    "repro_torch.configs": {"all_cells"},
-    "repro_torch.launch": {"StepBundle", "batch_axes", "build_step", "input_specs",
-                           "make_production_mesh", "make_smoke_mesh", "mesh_device_count"},
-}
+#: what stays unported: nothing (the mesh, the shardings, the step bundles
+#: and the dry-run were the last)
+NOT_YET = {}
 
 
 def test_the_port_exports_every_name_of_the_references_all():

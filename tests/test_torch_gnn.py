@@ -342,9 +342,26 @@ def test_the_references_nan_gradient_through_a_molecule_pad():
 
 
 def test_forward_dist_waits_for_the_mesh():
-    cfg = tgnn.PNAConfig(n_layers=1, d_in=3, d_hidden=4, n_classes=2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tgnn.forward_dist({}, torch.zeros(4, 3), torch.zeros(2, 1), cfg, None, ("data",))
+    """``forward_dist`` is ported: without batch axes on the mesh (or
+    without a mesh) it is ``forward``; on a one-rank mesh its one shard
+    holds every node, and the values are ``forward``'s (on 4 ranks against
+    the reference: tests/test_torch_dist.py)."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    cfg = tgnn.PNAConfig(n_layers=2, d_in=3, d_hidden=4, n_classes=2)
+    params = tgnn.init_params(torch.Generator().manual_seed(0), cfg)
+    g = tgnn.make_random_graph(12, 40, 3, 2, seed=1)
+    x, ei = torch.from_numpy(g["x"]), torch.from_numpy(g["edge_index"])
+    want = tgnn.forward(params, x, ei, cfg)
+    assert torch.equal(tgnn.forward_dist(params, x, ei, cfg, None, ("data",)), want)
+    mesh = make_smoke_mesh(device="cpu")
+    try:
+        assert torch.equal(tgnn.forward_dist(params, x, ei, cfg, mesh, ("pod",)), want)
+        part = torch.from_numpy(tgnn.partition_edges_by_dst(g["edge_index"], 12, 1))
+        torch.testing.assert_close(tgnn.forward_dist(params, x, part, cfg, mesh, ("data",)), want,
+                                   rtol=1e-6, atol=1e-6)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 # -- the numpy copies ----------------------------------------------------------------

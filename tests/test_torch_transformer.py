@@ -282,9 +282,15 @@ def test_init_params_has_the_references_tree():
 
 
 def test_what_is_not_ported_raises():
-    """Only the mesh-bound paths raise: the shard-local MoE
-    (``moe_batch_axes``) and the sequence-parallel residual; an MoE config
-    on one device runs (tests/test_torch_moe.py holds it to JAX)."""
+    """Nothing of the model is refused as unported any more.  The mesh-bound
+    paths, the shard-local MoE (``moe_batch_axes``) and the
+    sequence-parallel residual (``act_seq_axis``), read the mesh handle and
+    raise without one; on a mesh of one rank (a gloo world of one) they give
+    the one-device values bit for bit (tests/test_torch_dist.py holds them
+    to the reference on 4 ranks); an MoE config on one device runs
+    (tests/test_torch_moe.py holds it to JAX)."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+
     jcfg = _tiny()
     _, tp, tcfg = _models(jcfg)
     tok = torch.zeros((1, 4), dtype=torch.int64)
@@ -292,20 +298,27 @@ def test_what_is_not_ported_raises():
     mp = ttf.init_params(torch.Generator().manual_seed(0), moe)
     logits, aux = ttf.forward(mp, tok, moe)
     assert logits.shape == (1, 4, moe.vocab_size) and float(aux) > 0
-    with pytest.raises(NotImplementedError, match="moe_batch_axes"):
-        ttf.forward(mp, tok, dc.replace(moe, moe_batch_axes=("data",)))
-    with pytest.raises(NotImplementedError, match="moe_batch_axes"):
-        ttf.decode_step(mp, ttf.init_cache(moe, 1, 6, device="cpu"), tok[:, :1],
-                        dc.replace(moe, moe_batch_axes=("data",)))
-    with pytest.raises(NotImplementedError, match="_constrain_residual"):
-        ttf.forward(tp, tok, dc.replace(tcfg, act_seq_axis="data"))
+    sharded = dc.replace(moe, moe_batch_axes=("data",), moe_tp_axis="model")
+    seq = dc.replace(tcfg, act_seq_axis="model")
+    with pytest.raises(RuntimeError, match="set_moe_mesh"):
+        ttf.forward(mp, tok, sharded)
+    with pytest.raises(RuntimeError, match="set_moe_mesh"):
+        ttf.forward(tp, tok, seq)
     with pytest.raises(RuntimeError, match="set_moe_mesh"):
         ttf.get_moe_mesh()
-    ttf.set_mesh("mesh")
+    mesh = make_smoke_mesh(device="cpu")
     try:
-        assert ttf.get_moe_mesh() == "mesh"
+        ttf.set_mesh(mesh)
+        assert ttf.get_moe_mesh() is mesh
+        got, got_aux = ttf.forward(mp, tok, sharded)
+        assert torch.equal(got, logits) and torch.equal(got_aux, aux)
+        cache = ttf.init_cache(moe, 1, 6, device="cpu")
+        want = ttf.decode_step(mp, {k: v.clone() for k, v in cache.items()}, tok[:, :1], moe)[0]
+        assert torch.equal(ttf.decode_step(mp, cache, tok[:, :1], sharded)[0], want)
+        assert torch.equal(ttf.forward(tp, tok, seq)[0], ttf.forward(tp, tok, tcfg)[0])
     finally:
         ttf.set_moe_mesh(None)
+        torch.distributed.destroy_process_group()
     # the decode_window_slice lever is ported (tests/test_torch_window_slice.py):
     # on a model without local layers it changes nothing
     _, cache = ttf.prefill(tp, tok, tcfg, max_len=6)
