@@ -243,7 +243,19 @@ Phases (any failure raises and exits non-zero):
    user bag and the retrieval_cand item bag with CUDA events (L2 flushed)
    beside its byte bound, the plain version and
    ``torch.nn.functional.embedding_bag``; and SASRec, DIN and MIND at their
-   full published widths, one serve_p99 step each (ms and a checksum);
+   full published widths (2M x 50, 10M x 18 and 4M x 64 f32 tables from the
+   phase's seeded generator), one serve_p99 step each (ms and a checksum),
+   then serve_bulk (262,144) and retrieval_cand (1 x 1,000,000; DIN's in
+   ``din_chunk_rows`` chunks, 3 x 262,144 and a tail of 213,568) through
+   ``build_recsys_step``: a warm-up run and RECSYS_SCALE_STEPS timed runs
+   each equal to the first bit for bit, the peak memory, a profiled window
+   (device busy, idle share, the top ops); the first and last
+   RECSYS_SAMPLE rows (DIN's retrieval: from both ends of every chunk)
+   against the same function with the parameters in float64
+   (RECSYS_F64_RTOL, RECSYS_F64_ATOL; the same rows with TF32 products
+   must miss that bound); DIN's first chunk equal bit for bit
+   to the serve function on its 262,144 materialised pairs, SASRec's and
+   MIND's first candidates to it within the float64 bound; finite scores;
    gnn: PNA at its full config (4 layers, width 75, d_in 1433, 64
    classes, f32) through ``build_gnn_step``: the molecule serve step on
    batches of 128 padded molecules (logits held to the CPU's), then
@@ -496,6 +508,20 @@ RECSYS_PARAMS = 3_073_838_592
 #: two-tower's steps and how often each is timed after its first run
 RECSYS_STEPS = (("serve_p99", 20), ("serve_bulk", 5), ("retrieval_cand", 5))
 RECSYS_PROFILE = 3
+#: SASRec's, DIN's and MIND's bulk and retrieval steps: timed runs after
+#: the warm-up, and the profiled window
+RECSYS_SCALE_STEPS = (("serve_bulk", 3), ("retrieval_cand", 3))
+RECSYS_SCALE_PROFILE = 2
+#: their float64 check: RECSYS_SAMPLE rows from each end (DIN's retrieval:
+#: half of it from each end of every chunk), each score within
+#: RECSYS_F64_RTOL of the sample's largest float64 score plus
+#: RECSYS_F64_ATOL.  The float64 run casts the parameters; the functions'
+#: own ``.float()`` (attention logits, MIND's squash and similarities) keep
+#: those steps in f32 there too.  A control holds the bound below
+#: lower-precision error: the same rows in f32 with TF32 products must
+#: miss it
+RECSYS_SAMPLE = 256
+RECSYS_F64_RTOL, RECSYS_F64_ATOL = 1e-5, 1e-7
 #: the card's steps against the CPU's at a small width: the CPU tests' f32
 #: tolerance (the GEMMs sum in other orders)
 RECSYS_RTOL, RECSYS_ATOL = 1e-5, 1e-6
@@ -3528,17 +3554,145 @@ def check_embedding_bag(device, calls, user_table):
     return row
 
 
+def f64_close(got, want) -> tuple:
+    """``(ok, worst error, bound)``: each score within RECSYS_F64_RTOL of the
+    largest float64 score of the sample plus RECSYS_F64_ATOL."""
+    err = float((got.double() - want).abs().max())
+    bound = RECSYS_F64_RTOL * float(want.abs().max()) + RECSYS_F64_ATOL
+    return err <= bound, err, bound
+
+
+def recsys_samples(name: str, shape: str, n: int, rows: int) -> torch.Tensor:
+    """The rows the float64 check evaluates: the first and last
+    RECSYS_SAMPLE of serve_bulk and of SASRec's and MIND's retrievals; the
+    first and last half of RECSYS_SAMPLE of each of DIN's retrieval chunks
+    of ``rows``, the ragged tail's included."""
+    k = RECSYS_SAMPLE
+    if name == "din" and shape == "retrieval_cand":
+        k //= 2
+        starts = range(0, n, rows)
+        return torch.cat([torch.cat([torch.arange(lo, lo + k), torch.arange(hi - k, hi)])
+                          for lo, hi in ((lo, min(lo + rows, n)) for lo in starts)])
+    return torch.cat([torch.arange(k), torch.arange(n - k, n)])
+
+
+def recsys_sub_batch(name: str, shape: str, batch, idx):
+    """The rows ``idx`` of a serve batch, or the query against the
+    candidates ``idx`` of a retrieval batch."""
+    if shape == "serve_bulk":
+        return {k: v[idx] for k, v in batch.items()}
+    if name == "din":
+        return {"hist": batch["hist"], "cands": batch["cands"][idx]}
+    return {"seq": batch["seq"], "candidates": batch["candidates"][:, idx]}
+
+
+def serve_against_retrieval(name: str, serve_fn, params, batch, out, rows: int) -> str:
+    """The retrieval's scores against ``serve_fn`` on the same (history,
+    candidate) pairs: DIN's first chunk bit for bit (the same shapes as
+    serve_bulk's), SASRec's and MIND's first RECSYS_SAMPLE candidates within
+    the float64 check's bound (serve scores one candidate a row, another
+    product)."""
+    if name == "din":
+        pairs = {"hist": batch["hist"].expand(rows, -1).contiguous(),
+                 "target": batch["cands"][:rows]}
+        got = serve_fn(params, pairs)
+        err = float((got - out[:rows]).abs().max())
+        check(torch.equal(got, out[:rows]),
+              f"din: serve on the first chunk's {rows} pairs != the retrieval's "
+              f"(max abs diff {err:.3e})")
+        return f"serve on the first chunk's {rows} pairs equal bit for bit"
+    k = RECSYS_SAMPLE
+    seq = batch["seq"].expand(k, -1).contiguous()
+    got = serve_fn(params, {"seq": seq, "candidates": batch["candidates"][0, :k, None]})
+    ok, err, bound = f64_close(got, out[:k].double())
+    check(ok, f"{name}: serve on {k} candidates differs from the retrieval's by {err:.3e} "
+              f"(bound {bound:.3e})")
+    return f"serve on {k} candidates within {err:.3e} (bound {bound:.3e})"
+
+
+def recsys_at_scale(device, arch, params, gen) -> float:
+    """``arch``'s serve_bulk and retrieval_cand steps at full width: a
+    warm-up run, RECSYS_SCALE_STEPS timed runs each equal to the first bit
+    for bit, the peak memory, a profiled window; the sampled rows against
+    the same function in float64, the retrieval against the serve function,
+    shapes and finiteness.  Returns the peak bytes allocated since the last
+    reset before the call or in any step (each step resets the peak)."""
+    from repro_torch.launch.steps import build_recsys_step, din_chunk_rows, recsys_fns
+    from repro_torch.models.common import tree_map
+
+    name, cfg = arch.name, arch.config
+    serve_fn, retr_fn, _, _ = recsys_fns(arch, cfg)
+    rows = din_chunk_rows(cfg) if name == "din" else 0
+    most = torch.cuda.max_memory_allocated()
+    for shape, reps in RECSYS_SCALE_STEPS:
+        step = build_recsys_step(arch, arch.shape(shape), params, gen, device)
+        dims = arch.shape(shape).dims
+        n = dims["batch"] if shape == "serve_bulk" else dims["n_candidates"]
+        torch.cuda.synchronize()
+        most = max(most, torch.cuda.max_memory_allocated())
+        base = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        first, t = timed(lambda: step.fn(step.batch))
+        secs = []
+        for _ in range(reps):
+            out, sec = timed(lambda: step.fn(step.batch))
+            secs.append(sec)
+            check(torch.equal(out, first), f"{name} {shape}: a run differs from the first")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        most = max(most, torch.cuda.max_memory_allocated())
+        check(first.shape == (n,) and bool(torch.isfinite(first).all()),
+              f"{name} {shape}: {n} finite scores")
+        kern = device_kernels(lambda: step.fn(step.batch),
+                              lambda: [step.fn(step.batch) for _ in range(RECSYS_SCALE_PROFILE)],
+                              f"{name}'s {shape} steps")
+        busy = sum(e.device_time_total for e in kern) / RECSYS_SCALE_PROFILE / 1e3
+        med = float(np.median(secs)) * 1e3
+        top = "; ".join(f"{e.key[:40]} {e.device_time_total / RECSYS_SCALE_PROFILE / 1e3:.3f}ms"
+                        for e in sorted(kern, key=lambda e: -e.device_time_total)[:4])
+
+        idx = recsys_samples(name, shape, n, rows).to(device)
+        p64 = tree_map(lambda p: p.double() if p.is_floating_point() else p, params)
+        fn = serve_fn if shape == "serve_bulk" else retr_fn
+        sub = recsys_sub_batch(name, shape, step.batch, idx)
+        want = fn(p64, sub)
+        del p64
+        ok, err, bound = f64_close(first[idx], want)
+        check(ok, f"{name} {shape}: {err:.3e} from float64 on the sampled rows (bound "
+                  f"{bound:.3e})")
+        with tf32():
+            _, low_err, _ = f64_close(fn(params, sub), want)
+        check(low_err > bound, f"{name} {shape}: the TF32 control is within the float64 "
+                               f"bound ({low_err:.3e} <= {bound:.3e})")
+        line = (f"float64 on {idx.numel()} sampled rows: worst {err:.3e} (bound {bound:.3e}; "
+                f"the TF32 control {low_err:.3e})")
+        if shape == "retrieval_cand":
+            line += "; " + serve_against_retrieval(name, serve_fn, params, step.batch, first,
+                                                   rows)
+        chunks = f"{-(-n // rows)} chunks of {rows} rows, " if rows and n > rows else ""
+        print(f"recsys/{name}/{shape}: {n} scores, {chunks}ms/step median {med:.3f} mean "
+              f"{np.mean(secs) * 1e3:.3f} over {reps} runs after a warm-up of {t * 1e3:.3f} ms "
+              f"(host clock, synchronised), each equal to the first bit for bit; device busy "
+              f"{busy:.3f} ms/step, idle share {1 - busy / med:.4f}; peak {peak - base:.3f} GB of its "
+              f"own ({peak:.3f} with the {base:.3f} allocated before the step); {line}; "
+              f"finite; per step: {top}")
+        del step, first, out, want, sub
+        torch.cuda.empty_cache()
+    return max(most, torch.cuda.max_memory_allocated())
+
+
 def phase_recsys(device):
     """Two-tower retrieval at full published width on the card: its serve
     and retrieval steps through the embedding_bag kernel, each bag held to
     the plain version bit for bit, each step to its plain path; then the
-    kernel's checks and times, and SASRec, DIN and MIND at serve_p99."""
+    kernel's checks and times, and SASRec, DIN and MIND at serve_p99,
+    serve_bulk and retrieval_cand (:func:`recsys_at_scale`)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.embedding_bag import embedding_bag_plain
     from repro_torch.kernels.embedding_bag import kernel as ebk
     from repro_torch.launch.steps import RECSYS_INIT, build_recsys_step
     from repro_torch.models import recsys
 
+    start_gb = torch.cuda.memory_allocated() / 1e9
     arch = get_arch("two-tower-retrieval")
     cfg = arch.config
     gen = torch.Generator(device=device).manual_seed(SEED + 31)
@@ -3617,10 +3771,14 @@ def phase_recsys(device):
     print(f"recsys/launches: embedding_bag {launches} over {n_runs} steps (2 a step)")
     recsys_small_check(device)
     row = check_embedding_bag(device, calls, params["user_table"])
-    del calls, steps, step, first, params, out, plain
+    del calls, steps, step, first, params, out, plain, table, bags, got
     torch.cuda.empty_cache()
+    print(f"memory: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated after releasing "
+          f"two-tower ({start_gb:.3f} at the phase's start)")
 
-    # the other three archs at serve_p99, full published width
+    # the other three archs at full published width: serve_p99, then
+    # serve_bulk and retrieval_cand
+    peak = 0
     for name in ("sasrec", "din", "mind"):
         arch = get_arch(name)
         t0 = time.perf_counter()
@@ -3640,9 +3798,11 @@ def phase_recsys(device):
               f"{arch.config.embed_dim} table, {recsys.param_count(params)} parameters, set up "
               f"in {setup:.3f} s): {ms:.3f} ms/step (host clock, synchronised, second run); "
               f"checksum {float(out.double().sum()):.6f}")
-        del params, step, out
+        del step, out
+        peak = max(peak, recsys_at_scale(device, arch, params, gen))
+        del params
         torch.cuda.empty_cache()
-    return dict(launches=launches, row=row)
+    return dict(launches=launches, row=row, peak=peak)
 
 
 def gnn_profile(step, label: str, med_s: float, n: int = GNN_PROFILE) -> str:
@@ -4428,8 +4588,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rec = phase("recsys", phase_recsys, device)
-    print(f"memory: peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated in phase "
-          f"recsys")
+    print(f"memory: peak {max(rec['peak'], torch.cuda.max_memory_allocated()) / 1e9:.3f} GB "
+          f"allocated in phase recsys")
     gc.collect()
     torch.cuda.empty_cache()
     phase("gnn", phase_gnn, device)

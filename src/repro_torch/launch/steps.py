@@ -24,8 +24,9 @@ PNA's serve step (``molecule``: padded molecules through
 bound to weights, on a seeded batch at the reference's padded sizes.  For
 each recsys architecture, the training loss, the serve function (a batch
 of users or histories against one target each) and the retrieval function
-(one query against ``n_candidates`` items), with makers of seeded batches
-of real ids at a shape's sizes.  The reference's makers build
+(one query against ``n_candidates`` items; DIN's in chunks that fit the
+card, :func:`din_chunk_rows`), with makers of seeded batches of real ids
+at a shape's sizes.  The reference's makers build
 ``ShapeDtypeStruct``s for its dry-run; the port's draw data from a
 ``torch.Generator`` (on ``meta``, the bundle's abstract batches):
 
@@ -462,11 +463,53 @@ def _bags(gen: torch.Generator, high: int, b: int, l: int) -> torch.Tensor:
     return torch.where(torch.arange(l, device=gen.device) < length, ids, -1)
 
 
+#: DIN retrieval's activation budget per chunk of candidates (see
+#: :func:`din_chunk_rows`): at the full config 262,144 rows, serve_bulk's
+#: batch, ~27 GB of the card's 80
+DIN_CHUNK_BYTES = 32 * 2**30
+
+
+def din_row_bytes(cfg) -> int:
+    """Peak bytes of activations per (history, candidate) row of
+    ``din_forward``, run eagerly with no autograd graph (``s`` the dtype's
+    size, ``L`` the history, ``d`` the embedding width):
+
+    * the gathered history ``hist`` (L, d) lives through the whole forward;
+    * ``feat = cat(hist, t, hist - t, hist * t)`` (L, 4d) lives through the
+      attention MLP; while it is built, ``hist - t`` and ``hist * t`` are
+      alive beside it: ``d + 2d + 4d = 7d`` per position;
+    * attention layer ``i`` (``w_in -> w_out``) holds its product and its
+      bias add (then its input and the ReLU) together, ``2 w_out``, beside
+      ``hist`` and ``feat`` and, past layer 0, its input ``w_in``:
+      ``5d + [i > 0] w_in + 2 w_out``;
+    * 8 more L-wide vectors of ``s`` bytes: the clamped ids and their int64
+      copy for the gather, the mask, the scores and their softmax.
+
+    So ``L * (max(7d, max_i(5d + [i > 0] w_in + 2 w_out)) + 8) * s``; at the
+    full config (d 18, L 100, attention 72-80-40-1, f32) 103,200 bytes: a
+    million candidates in one pass would need ~103 GB."""
+    d, widths = cfg.embed_dim, (4 * cfg.embed_dim,) + tuple(cfg.attn_dims) + (1,)
+    layers = max(5 * d + (w_in if i else 0) + 2 * w_out
+                 for i, (w_in, w_out) in enumerate(zip(widths, widths[1:])))
+    return cfg.seq_len * (max(7 * d, layers) + 8) * torch.empty((), dtype=cfg.dtype).element_size()
+
+
+def din_chunk_rows(cfg) -> int:
+    """Candidates per chunk of DIN's retrieval: the largest power of two
+    whose rows fit :data:`DIN_CHUNK_BYTES` by :func:`din_row_bytes` (at
+    least 1).  A power of two, so at the full config a full chunk has
+    serve_bulk's batch (262,144) and its shapes."""
+    rows = max(1, DIN_CHUNK_BYTES // din_row_bytes(cfg))
+    return 1 << (rows.bit_length() - 1)
+
+
 def recsys_fns(arch: Arch, cfg):
     """``(serve_fn, retrieval_fn, make_serve, make_retr)`` per architecture:
     ``serve_fn(params, batch)`` and ``retrieval_fn(params, batch)`` as the
     reference's, and ``make_serve(b, generator)`` / ``make_retr(c,
-    generator)`` draw a batch on the generator's device."""
+    generator)`` draw a batch on the generator's device.  DIN's
+    ``retrieval_fn(params, batch, chunk_rows=None)`` scores the candidates
+    in chunks of ``chunk_rows`` (default :func:`din_chunk_rows`)."""
     name = arch.name
     if name == "two-tower-retrieval":
         def make_serve(b, gen):
@@ -520,9 +563,15 @@ def recsys_fns(arch: Arch, cfg):
         def make_retr(c, gen):
             return {"hist": _ids(gen, cfg.n_items, (1, L)), "cands": _ids(gen, cfg.n_items, (c,))}
 
-        def retr_fn(params, batch):
-            hist = batch["hist"].expand(batch["cands"].shape[0], batch["hist"].shape[1])
-            return recsys.din_forward(params, {"hist": hist, "target": batch["cands"]}, cfg)
+        def retr_fn(params, batch, chunk_rows: Optional[int] = None):
+            """The reference's one pass, over consecutive chunks of the
+            candidates (:func:`din_chunk_rows` rows each, the last ragged):
+            each score depends on its own row alone, so the values are the
+            one pass's."""
+            rows = chunk_rows or din_chunk_rows(cfg)
+            return torch.cat([recsys.din_forward(
+                params, {"hist": batch["hist"].expand(part.shape[0], L), "target": part}, cfg)
+                for part in batch["cands"].split(rows)])
 
         return serve_fn, retr_fn, make_serve, make_retr
 

@@ -1,8 +1,9 @@
 """The port imports nothing of JAX and nothing of the JAX package.
 
 ``repro_torch`` keeps its own copies of what it needs (even of ``repro``'s
-jax-free modules), and ``chip_smoke.py`` follows the same rule: the
-machine with the card has no JAX.  And the port exports what the JAX
+jax-free modules), and ``chip_smoke.py`` and the port's examples
+(``examples/torch_*.py``) follow the same rule: the machine with the card
+has no JAX.  And the port exports what the JAX
 package exports: every name of each reference module's ``__all__`` is in
 its port counterpart, but for the parts still to port.
 """
@@ -82,6 +83,30 @@ def test_no_import_line_names_jax_or_repro():
     for path in files:
         for n, line in enumerate(path.read_text().splitlines(), 1):
             assert not _IMPORT.match(line), f"{path.relative_to(ROOT)}:{n}: {line}"
+
+
+def test_the_port_examples_import_no_jax_and_no_repro():
+    """``examples/torch_*.py``: no import line names JAX or the JAX package,
+    and loading each (its module body, not its ``main``) loads neither."""
+    files = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [f.stem for f in files] == ["torch_cache_size_sweep", "torch_quickstart",
+                                       "torch_serve_with_std_cache", "torch_train_lm"]
+    for path in files:
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            assert not _IMPORT.match(line), f"{path.relative_to(ROOT)}:{n}: {line}"
+    code = (
+        "import runpy, sys\n"
+        f"for f in {[str(f) for f in files]!r}:\n"
+        "    runpy.run_path(f, run_name='example')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 #: what stays unported: nothing (the mesh, the shardings, the step bundles

@@ -1048,6 +1048,39 @@ def test_two_tower_steps_on_the_card_go_through_the_kernel(cuda):
         torch.testing.assert_close(got.cpu(), cpu.fn(cpu.batch), rtol=1e-5, atol=1e-6)
 
 
+def test_din_chunked_retrieval_on_the_card_equals_the_cpu(cuda):
+    """DIN at its full widths (d 18, L 100, attention 80-40, MLP 200-80)
+    with the table cut to 100,000 items: 20,000 candidates in chunks of
+    4096 (a ragged tail of 3616) on the card against the CPU's chunks and
+    the card's one pass (rtol 1e-5, atol 1e-6: the same f32 tolerance as
+    the CPU tests), and the first chunk against the serve function on its
+    materialised pairs, bit for bit (the same shapes)."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch.steps import build_recsys_step, recsys_fns
+    from repro_torch.models import recsys
+
+    arch = get_arch("din")
+    shape = ShapeSpec("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 20_000})
+    arch = dc.replace(arch, config=dc.replace(arch.config, n_items=100_000), shapes=(shape,))
+    params = recsys.init_din(torch.Generator().manual_seed(0), arch.config)
+    on_card = recsys.params_from_numpy(params, device=cuda)
+    card, cpu = (build_recsys_step(arch, shape, p, torch.Generator().manual_seed(1), dev)
+                 for p, dev in ((on_card, cuda), (params, "cpu")))
+    got = card.fn(card.batch, chunk_rows=4096)
+    assert got.shape == (20_000,) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), cpu.fn(cpu.batch, chunk_rows=4096), rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(got, card.fn(card.batch, chunk_rows=20_000), rtol=1e-5,
+                               atol=1e-6)
+    serve_fn = recsys_fns(arch, arch.config)[0]
+    pairs = {"hist": card.batch["hist"].expand(4096, -1).contiguous(),
+             "target": card.batch["cands"][:4096]}
+    assert torch.equal(got[:4096], serve_fn(on_card, pairs))
+
+
 def test_four_shard_cluster_on_the_card_equals_the_host_engine_cluster(cuda):
     """A 4-shard cluster on the card (every shard on cuda:0, shard threads
     asked for) against the numpy host-engine cluster on one seeded stream:
