@@ -861,7 +861,17 @@ def phase_serve(device, cache, true_topic, first, warm, serve):
     return out
 
 
-def device_kernels(warm, run, what: str):
+class Kernels(list):
+    """``device_kernels``' result: the profiler's device kernels by name
+    (``key_averages``), and ``busy_us``, the union of the kernels' spans on
+    the device, so that kernels that overlap count once (a programmatic
+    dependent launch, as the decode attention's merge, runs beside the
+    kernel it waits for; its span starts with that kernel's)."""
+
+    busy_us = 0.0
+
+
+def device_kernels(warm, run, what: str) -> Kernels:
     """The device kernels the torch profiler recorded while ``run()`` ran,
     after ``warm()`` ran in a first session (it starts the tracer).
 
@@ -886,17 +896,26 @@ def device_kernels(warm, run, what: str):
         end.record()
         torch.cuda.synchronize()
         time.sleep(0.05)
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = Kernels(e for e in prof.key_averages()
+                   if e.device_type == cuda and e.device_time_total > 0)
     if kern:
+        busy, last = 0.0, float("-inf")
+        for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                           if e.device_type == cuda):
+            busy += max(0.0, b - max(a, last))
+            last = max(last, b)
+        kern.busy_us = busy or sum(e.device_time_total for e in kern)
         return kern
     span_us = start.elapsed_time(end) * 1e3
     check(span_us > 0, f"neither the profiler nor CUDA events saw device time for {what}")
     print(f"profile: the profiler recorded no device time for {what}; its busy time below is "
           f"the window's span on CUDA events ({span_us:.1f} us), an upper bound, with no "
           f"per-kernel split")
-    return [SimpleNamespace(key="window span (CUDA events)", device_time_total=span_us,
-                            count=0)]
+    kern = Kernels([SimpleNamespace(key="window span (CUDA events)", device_time_total=span_us,
+                                    count=0)])
+    kern.busy_us = span_us
+    return kern
 
 
 def profile_window(broker, batches, batch_s: float):
@@ -913,7 +932,7 @@ def profile_window(broker, batches, batch_s: float):
 
     n = len(batches) - 1
     kern = device_kernels(lambda: broker.serve(batches[0]), rest, "the served batches")
-    busy = sum(e.device_time_total for e in kern) / n / 1e6  # s per batch
+    busy = kern.busy_us / n / 1e6  # s per batch
     top = sorted(kern, key=lambda e: -e.device_time_total)[:8]
     names = "; ".join(f"{e.key[:70]} {e.device_time_total / n:.1f}us x{e.count / n:.1f}"
                       for e in top)
@@ -1469,7 +1488,7 @@ def phase_cluster(device, stats, true_topic, warm, serve, served):
     # the device's idle share at shards 4 (serial), over the extra batches
     kern = device_kernels(lambda: card.serve(extra[0]),
                           lambda: [card.serve(q) for q in extra[1:]], "the 4-shard cluster")
-    busy = sum(e.device_time_total for e in kern) / (len(extra) - 1) / 1e6
+    busy = kern.busy_us / (len(extra) - 1) / 1e6
     med = float(np.median(secs4["serial"]))
     print(f"cluster/profile: device busy {busy * 1e3:.4f} ms/batch over {len(extra) - 1} "
           f"batches on 4 shards, idle share {1 - busy / med:.4f} of the serial median "
@@ -1937,7 +1956,7 @@ def lm_profile(params, cache, cfg, tokens, step_s: float, start: int = LM_PROMPT
             state["cache"] = tf.decode_step(params, state["cache"], tokens[t], cfg)[1]
 
     kern = device_kernels(lambda: steps(0, 1), lambda: steps(1, n + 1), "the decode steps")
-    busy = sum(e.device_time_total for e in kern) / n / 1e3  # ms per step
+    busy = kern.busy_us / n / 1e3  # ms per step
     top = sorted(kern, key=lambda e: -e.device_time_total)[:6]
     names = "; ".join(f"{e.key[:60]} {e.device_time_total / n / 1e3:.3f}ms "
                       f"x{e.count / n:.1f}" for e in top)
@@ -2623,7 +2642,7 @@ def moe_train(device) -> dict:
     kern = device_kernels(lambda: step.fn(params, opt, {"tokens": tokens[0]}),
                           lambda: step.fn(params, opt, {"tokens": tokens[1]}),
                           "llama4-scout's train step")
-    busy = sum(e.device_time_total for e in kern) / 1e3
+    busy = kern.busy_us / 1e3
     n_params = sum(p.numel() for p in params.parameters())
     print(f"lm/llama4-scout-17b-a16e/train: train_4k at full width cut to "
           f"{LM_MOE_TRAIN_LAYERS} layer ({n_params} parameters, Adafactor, remat), one "
@@ -3225,7 +3244,7 @@ def gemma_train(device):
         lambda: step.fn(params, opt, {"tokens": tokens[0]}),
         lambda: [step.fn(params, opt, {"tokens": tokens[i]}) for i in range(TRAIN_PROFILE)],
         "the gemma-2b train steps")
-    busy = sum(e.device_time_total for e in kern) / TRAIN_PROFILE / 1e3  # ms per step
+    busy = kern.busy_us / TRAIN_PROFILE / 1e3  # ms per step
     top = sorted(kern, key=lambda e: -e.device_time_total)[:8]
     names = "; ".join(f"{e.key[:70]} {e.device_time_total / TRAIN_PROFILE / 1e3:.3f}ms "
                       f"x{e.count / TRAIN_PROFILE:.0f}" for e in top)
@@ -3645,7 +3664,7 @@ def recsys_at_scale(device, arch, params, gen) -> float:
         kern = device_kernels(lambda: step.fn(step.batch),
                               lambda: [step.fn(step.batch) for _ in range(RECSYS_SCALE_PROFILE)],
                               f"{name}'s {shape} steps")
-        busy = sum(e.device_time_total for e in kern) / RECSYS_SCALE_PROFILE / 1e3
+        busy = kern.busy_us / RECSYS_SCALE_PROFILE / 1e3
         med = float(np.median(secs)) * 1e3
         top = "; ".join(f"{e.key[:40]} {e.device_time_total / RECSYS_SCALE_PROFILE / 1e3:.3f}ms"
                         for e in sorted(kern, key=lambda e: -e.device_time_total)[:4])
@@ -3759,7 +3778,7 @@ def phase_recsys(device):
         kern = device_kernels(lambda: step.fn(step.batch),
                               lambda: [step.fn(step.batch) for _ in range(RECSYS_PROFILE)],
                               f"the {name} steps")
-        busy = sum(e.device_time_total for e in kern) / RECSYS_PROFILE / 1e3  # ms per step
+        busy = kern.busy_us / RECSYS_PROFILE / 1e3  # ms per step
         med = float(np.median(secs[name])) * 1e3
         top = "; ".join(f"{e.key[:50]} {e.device_time_total / RECSYS_PROFILE / 1e3:.3f}ms"
                         for e in sorted(kern, key=lambda e: -e.device_time_total)[:4])
@@ -3810,7 +3829,7 @@ def gnn_profile(step, label: str, med_s: float, n: int = GNN_PROFILE) -> str:
     the unprofiled median: the idle share, and the top device ops."""
     kern = device_kernels(lambda: step.fn(step.batch),
                           lambda: [step.fn(step.batch) for _ in range(n)], f"the {label} steps")
-    busy = sum(e.device_time_total for e in kern) / n / 1e3
+    busy = kern.busy_us / n / 1e3
     top = "; ".join(f"{e.key[:50]} {e.device_time_total / n / 1e3:.3f}ms"
                     for e in sorted(kern, key=lambda e: -e.device_time_total)[:4])
     return (f"device busy {busy:.3f} ms/call, idle share {1 - busy / (med_s * 1e3):.4f}; "
@@ -4218,10 +4237,10 @@ def check_topic_score(device, topics, flush):
 
 def decode_cases(device, real):
     """``(label, q, k, v, cur, scale, softcap, window)``: the decode path's
-    captured call (one layer's real cache at the decode shape), gemma2-27b's
-    and glm4-9b's decode geometries on seeded data at S = 32768, the sweep
-    of tests/test_kernels.py in f32 and bf16, cur = 0, and S off every
-    tile."""
+    captured call (one layer's real cache at the decode shape), gemma2-27b's,
+    glm4-9b's, llama4-scout's and arctic's decode geometries on seeded data
+    at S = 32768, the sweep of tests/test_kernels.py in f32 and bf16, cur =
+    0, and S off every tile."""
     gen = torch.Generator(device=device).manual_seed(SEED + 21)
 
     def draw(b, hkv, g, d, s, dtype):
@@ -4239,6 +4258,10 @@ def decode_cases(device, real):
     cases.append(("gemma2-27b geometry B=8", *g27, cur(LM_SEQ - 100), 144**-0.5, 50.0, 4096))
     glm = draw(16, 2, 16, 128, LM_SEQ, torch.bfloat16)
     cases.append(("glm4-9b geometry B=16", *glm, cur(LM_SEQ - 1001), 128**-0.5, None, None))
+    for name, g in (("llama4-scout", 5), ("arctic", 7)):
+        moe = draw(16, 8, g, 128, LM_SEQ, torch.bfloat16)
+        cases.append((f"{name} geometry B=16", *moe, cur(LM_SEQ - LM_MOE_STEPS), 128**-0.5,
+                       None, None))
     rng = np.random.default_rng(SEED + 22)
     for b, hkv, g, d, s, cap_, win_ in ((2, 2, 4, 64, 256, None, None),
                                          (1, 1, 8, 128, 1024, 50.0, 300),
@@ -4276,7 +4299,7 @@ def check_decode_attention(device, lm, flush):
     from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 
     check(lm["args"] is not None, "captured the decode path's last decode_attention call")
-    row = dict(max_abs_err=0.0)
+    row = dict(max_abs_err=0.0, geometries={})
     for label, q, k, v, cur, scale, cap, win in decode_cases(device, lm["args"]):
         got = dak.decode_attention(q, k, v, cur, scale, cap, win)
         want = decode_attention_plain(q, k, v, cur, scale, cap, win)
@@ -4287,12 +4310,38 @@ def check_decode_attention(device, lm, flush):
         line = (f"kernels/decode_attention/{label}: max abs err {err:.3e}, {ratio:.4f} of the "
                 f"bound, output RMS {rms:.3e}")
         if k.shape[1] == LM_SEQ:
-            ms = time_device(lambda: dak.decode_attention(q, k, v, cur, scale, cap, win), 20,
-                             flush, lambda: None)
             nb = decode_bytes(q, k, int(cur), win)
-            line += (f"; device {ms:.6f} ms (L2 flushed), {nb / ms / 1e6:.1f} GB/s, byte "
-                     f"bound {nb / HBM_BYTES_PER_S * 1e3:.6f} ms")
+            geo = dict(bound_ms=nb / HBM_BYTES_PER_S * 1e3)
+            geo["ms"] = time_device(lambda: dak.decode_attention(q, k, v, cur, scale, cap, win),
+                                    20, flush, lambda: None)
+            line += (f"; device {geo['ms']:.6f} ms (L2 flushed), {nb / geo['ms'] / 1e6:.1f} GB/s, "
+                     f"byte bound {geo['bound_ms']:.6f} ms")
+            if k.shape[2] > 1 and q.dtype == torch.bfloat16:
+                geo["library_ms"], n_keys, lib_err = library_decode_ms(q, k, v, cur, scale, win,
+                                                                       flush)
+                line += (f"; scaled_dot_product_attention (enable_gqa, {n_keys} keys copied out "
+                         f"before timing{', no softcap' if cap else ''}; max abs diff to plain "
+                         f"{lib_err:.3e}) {geo['library_ms']:.6f} ms, the kernel "
+                         f"{geo['ms'] / geo['library_ms']:.3f}x it")
+            row["geometries"][label] = geo
         print(line)
+        del got, want
+    # slots past cur holding NaN (what a box copy ending past cur would
+    # bring in): the bf16 output bit for bit as without them, Hkv 1 and 8
+    for hkv, g, d in ((1, 8, 256), (8, 5, 128)):
+        gen = torch.Generator(device=device).manual_seed(SEED + 24)
+        q, k, v = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+                   for shape in ((2, hkv, g, d), (2, 4099, hkv, d), (2, 4099, hkv, d)))
+        for c in (0, 1000, 2047, 3000):
+            cur = torch.tensor(c, dtype=torch.int32, device=device)
+            o1 = dak.decode_attention(q, k, v, cur, d**-0.5)
+            k2, v2 = k.clone(), v.clone()
+            k2[:, c + 1:], v2[:, c + 1:] = float("nan"), float("nan")
+            check(torch.equal(o1, dak.decode_attention(q, k2, v2, cur, d**-0.5)),
+                  f"NaN past cur_len = {c} changed decode_attention's output (Hkv {hkv})")
+        print(f"kernels/decode_attention/NaN past the fill: Hkv {hkv} G {g} d {d}, cur 0, 1000, "
+              f"2047, 3000: bit for bit as without the NaN")
+        del q, k, v, k2, v2
     # the poison case of tests/test_kernels.py: the slots past cur do not count
     q, k, v = (torch.from_numpy(np.random.default_rng(SEED + 23).normal(size=shape)
                                 .astype(np.float32)).to(device)
@@ -4654,6 +4703,8 @@ def main() -> int:
         llama4_scout_bound_ms=l4["bound_ms"], llama4_scout_library_ms=l4["library_ms"],
         arctic_ms=arc["ms"], arctic_plain_ms=arc["plain_ms"],
         arctic_bound_ms=arc["bound_ms"], arctic_library_ms=arc["library_ms"],
+        # the kernels phase's geometries on seeded data
+        geometries=r["geometries"],
     ))
     r = rec["row"]  # the serve_bulk user bag
     kernels.append(dict(

@@ -711,17 +711,22 @@ def test_decode_attention_kernel_equals_plain_on_the_card(cuda, b, hkv, g, d, s,
 
 
 def _ring_curs(dev, b, hkv, g, d, s, dtype):
-    """Fill levels at the bf16 kernel's ring-stage and chunk boundaries for
-    these shapes: one short of, at and one past the first stage's end, the
-    ring's wrap (every stage filled once) and each chunk's end."""
+    """Fill levels at the bf16 kernel's box (one ring stage), ring-wrap and
+    block boundaries for these shapes: one short of, at and one past the
+    first box's end, the ring's wrap (every stage filled once) and the
+    first place inside a pair where the persistent grid's plan for the
+    full cache moves to another block."""
     if dtype != torch.bfloat16:
         return [0, s // 3, s - 1]
-    h_slots = da_kernel.head_slots(g, d)
-    tile = da_kernel.stage_keys(d, h_slots)
-    stages = da_kernel.ring_stages(h_slots)
+    tile = da_kernel.stage_keys(d)
+    stages = da_kernel.ring_stages(d, tile)
     wrap = stages * tile
-    resident = da_kernel._slots(dev.index or 0, g, d, 1, stages, h_slots)
-    chunk, _ = da_kernel.split_plan(b * hkv, s, resident, tile, da_kernel.TC_BLOCK_COST)
+    grid = da_kernel._slots(dev.index or 0, g, d, 1, stages, da_kernel.head_slots(g, d), tile)
+    tiles = -(-s // tile)
+    total = b * hkv * tiles
+    starts = {da_kernel.tile_range(i, total, grid)[0] % tiles * tile
+              for i in range(min(grid, total))}
+    chunk = min(starts - {0}, default=s)
     curs = {tile - 1, tile, tile + 1, wrap - 1, wrap, wrap + 1, chunk - 1, chunk, chunk + 1,
             s - 1, 0}
     return sorted(c for c in curs if 0 <= c < s)
@@ -731,10 +736,11 @@ def _ring_curs(dev, b, hkv, g, d, s, dtype):
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_decode_attention_tensor_core_kernel_on_the_card(cuda, g, d):
     """The bf16 kernel (mma.sync on the tensor cores, p as two bf16 halves,
-    a bulk-copy ring) against its plain version: G in {1, 2, 4, 8, 16}, d
-    in {64, 128, 256}, S off every stage, the fill level at ring-stage and
-    chunk boundaries; with a softcap and a window on every other case."""
-    s = 3 * da_kernel.stage_keys(d, da_kernel.head_slots(g, d)) * 3 + 37
+    a ring of TMA tensor copies) against its plain version: G in {1, 2, 4,
+    8, 16}, d in {64, 128, 256}, S off every box, the fill level at box,
+    ring-wrap and block boundaries; with a softcap and a window on every
+    other case."""
+    s = 9 * da_kernel.stage_keys(d) + 37
     q, k, v = (x.to(cuda) for x in _decode_case(g * d + 1, 3, 1, g, d, s, torch.bfloat16))
     cap, win = (30.0, s // 4) if (g + d // 64) % 2 else (None, None)
     for cur in _ring_curs(cuda, 3, 1, g, d, s, torch.bfloat16):
@@ -747,12 +753,17 @@ def test_decode_attention_tensor_core_kernel_on_the_card(cuda, g, d):
 
 @pytest.mark.parametrize("hkv,g,d,cap,win", [(2, 8, 128, None, None), (4, 2, 256, 50.0, 300),
                                              (3, 16, 64, None, 90), (2, 4, 16, 20.0, None),
-                                             (8, 5, 128, None, None), (8, 7, 128, None, None)])
+                                             (8, 5, 128, None, None), (8, 7, 128, None, None),
+                                             (16, 2, 128, 50.0, 4096), (2, 16, 128, None, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_with_strided_heads(cuda, hkv, g, d, cap, win, dtype):
-    """Hkv > 1: a position's rows of one kv head are strided, so the bf16
-    ring copies them one row a copy; the f32 path beside it."""
-    s = 2 * da_kernel.stage_keys(d, da_kernel.head_slots(g, d)) + 11
+    """Hkv > 1: a kv head's rows are strided, and one TMA box copies a
+    stage of them; the f32 path beside it.  The registry's Hkv > 1 decode
+    geometries (llama4-scout's Hkv 8 G 5, arctic's G 7, gemma2-27b's Hkv
+    16 G 2 with its softcap and window, glm4-9b's Hkv 2 G 16) at B 2 and S
+    off every box, 20 boxes a pair, so blocks of the persistent grid span
+    pairs; the fill level at box, ring-wrap and block boundaries."""
+    s = 20 * da_kernel.stage_keys(d) + 11
     q, k, v = (x.to(cuda) for x in _decode_case(hkv * g + d, 2, hkv, g, d, s, dtype))
     for cur in _ring_curs(cuda, 2, hkv, g, d, s, dtype):
         cur_t = torch.tensor(cur, dtype=torch.int32, device=cuda)
@@ -760,6 +771,54 @@ def test_decode_attention_kernel_with_strided_heads(cuda, hkv, g, d, cap, win, d
         want = decode_attention_plain(q, k, v, cur_t, d**-0.5, cap, win)
         torch.cuda.synchronize()
         _assert_decode_close(got, want)
+
+
+@pytest.mark.parametrize("hkv,g,d", [(1, 8, 256), (8, 5, 128)])
+def test_decode_attention_kernel_ignores_nan_past_the_fill(cuda, hkv, g, d):
+    """Slots past cur_len may hold anything: NaN in K and in V there leaves
+    the bf16 kernel's output bit for bit as it was, at fill levels where the
+    last box is moved back to end at cur_len and where it ends on a box
+    boundary; with and without a window, and through the window slice."""
+    keys = da_kernel.stage_keys(d)
+    s = 6 * keys + 5
+    q, k, v = (x.to(cuda) for x in _decode_case(hkv + g + d, 2, hkv, g, d, s, torch.bfloat16))
+    for cur in (0, 3, keys - 1, keys, 2 * keys + 17, 4 * keys - 1):
+        cur_t = torch.tensor(cur, dtype=torch.int32, device=cuda)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, cur + 1:] = float("nan")
+        v2[:, cur + 1:] = float("nan")
+        for kw in (dict(), dict(window=keys // 2 + 3), dict(window_slice=keys + 9)):
+            o1 = decode_attention_op(q, k, v, cur_t, d**-0.5, **kw)
+            o2 = decode_attention_op(q, k2, v2, cur_t, d**-0.5, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(o1, o2), (cur, kw)
+            assert bool(torch.isfinite(o2.float()).all())
+
+
+def test_decode_attention_kernel_in_a_cuda_graph(cuda):
+    """The bf16 call captured in a CUDA graph (its tensor maps, persistent
+    grid and the merge's programmatic dependent launch inside) replays bit
+    for bit as eager calls, with cur_len moved on the card between
+    replays."""
+    b, hkv, g, d, s = 2, 8, 5, 128, 3000
+    q, k, v = (x.to(cuda) for x in _decode_case(11, b, hkv, g, d, s, torch.bfloat16))
+    cur = torch.tensor(100, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        decode_attention_op(q, k, v, cur, d**-0.5)  # warm-up off the graph
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = decode_attention_op(q, k, v, cur, d**-0.5)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    for c in (100, 1500, 2999, 7):
+        cur.fill_(c)
+        graph.replay()
+        want = decode_attention_op(q, k, v, cur, d**-0.5)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), c
+        _assert_decode_close(out, decode_attention_plain(q, k, v, cur, d**-0.5))
 
 
 def test_decode_attention_kernel_reads_only_the_filled_cache(cuda):

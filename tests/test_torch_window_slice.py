@@ -150,13 +150,17 @@ def test_window_slice_comes_without_a_window():
 
 
 def test_the_split_plan_covers_the_slice():
-    """The kernel plans over ``min(window, S)`` keys: every plan covers
-    them, and at gemma2-27b's decode shape the window's 4096 keys are
-    split over more blocks than a full read's plan gives the window."""
-    for pairs, keys, slots in ((32, 4096, 132), (2, 16, 264), (512, 4096, 132)):
-        chunk, n = da_kernel.split_plan(pairs, keys, slots, 64, da_kernel.TC_BLOCK_COST)
-        assert chunk * n >= keys and chunk % 64 == 0
-    tile = da_kernel.stage_keys(128, da_kernel.head_slots(2, 128))
-    full_chunk, _ = da_kernel.split_plan(32, 32768, 132, tile, da_kernel.TC_BLOCK_COST)
-    slice_chunk, slice_n = da_kernel.split_plan(32, 4096, 132, tile, da_kernel.TC_BLOCK_COST)
-    assert slice_n > -(-4096 // full_chunk) and slice_chunk < full_chunk
+    """The kernel sweeps ``min(window, S)`` keys: the persistent grid's
+    plan covers them, and at gemma2-27b's decode shape the window's 4096
+    keys (32 tiles a pair) are spread over all 132 blocks, 7 or 8 tiles
+    each, where a full read's plan would give each block the whole cache's
+    share."""
+    for pairs, keys, grid in ((32, 4096, 132), (2, 16, 264), (512, 4096, 132)):
+        plan = da_kernel.work_plan(pairs, keys, 64, grid)
+        tiles = -(-keys // 64)
+        assert sum(n for segs in plan for _, n in segs) == pairs * tiles
+    sk = da_kernel.stage_keys(128)
+    plan = da_kernel.work_plan(32, 4096, sk, 132)
+    assert {sum(n for _, n in segs) for segs in plan} == {7, 8}
+    full = da_kernel.work_plan(32, 32768, sk, 132)
+    assert min(sum(n for _, n in segs) for segs in full) > 8 * 7
