@@ -69,6 +69,7 @@ from ..serving import (
     RebalanceSpec,
     ResilienceSpec,
     ServingSpec,
+    tracing,
 )
 from ..topics import run_pipeline
 
@@ -134,24 +135,52 @@ def lm_backend(params: tf.ParamTree, cfg: tf.TransformerConfig, value_dim: int =
     capacity (as in the reference, whose batch of windows shares it), so a
     replay answers as the eager call on the padded rows does.  Larger
     calls, and every call on the CPU, run eagerly.  Calls from several
-    threads take turns on the graphs."""
+    threads take turns on the graphs.
+
+    ``backend.counters`` counts, always: ``calls``; ``rows``, the ids asked
+    for; ``graph_rows``, the rows computed (a replayed graph's rows, ``n``
+    on the eager path); ``eager_calls``; ``captures``, the graphs
+    captured.  With :mod:`..serving.tracing` on, a call records the spans
+    ``backend.call``, ``backend.tokens``, ``backend.stage``,
+    ``backend.replay`` and ``backend.fetch``."""
     dev = resolve_device(device)
     graphs = (_capture_scores(params, cfg, value_dim, dev, graph_max)
               if graph_max > 0 and dev.type == "cuda" else {})
     lock = threading.Lock()
+    counters = {"calls": 0, "rows": 0, "graph_rows": 0, "eager_calls": 0,
+                "captures": len(graphs)}
+    tally = threading.Lock()
+
+    def count(n: int, rows: int, eager: bool) -> None:
+        with tally:
+            counters["calls"] += 1
+            counters["rows"] += n
+            counters["graph_rows"] += rows
+            counters["eager_calls"] += eager
 
     def backend(qids: np.ndarray) -> np.ndarray:
-        tokens = torch.from_numpy(query_tokens(qids, cfg.vocab_size))
-        n = len(tokens)
-        if 0 < n <= graph_max and graphs:
-            graph, inp, ids = graphs[_graph_rows(n)]
-            with lock:
-                inp[:n].copy_(tokens)
-                inp[n:].zero_()
-                graph.replay()
-                return ids[:n].cpu().numpy()
-        return model_scores(params, tokens.to(dev), cfg, value_dim).cpu().numpy()
+        with tracing.span("backend.call", len(qids)):
+            with tracing.span("backend.tokens", len(qids)):
+                tokens = torch.from_numpy(query_tokens(qids, cfg.vocab_size))
+            n = len(tokens)
+            if 0 < n <= graph_max and graphs:
+                rows = _graph_rows(n)
+                graph, inp, ids = graphs[rows]
+                count(n, rows, False)
+                with lock:
+                    with tracing.span("backend.stage", n):
+                        inp[:n].copy_(tokens)
+                        inp[n:].zero_()
+                    with tracing.span("backend.replay", rows):
+                        graph.replay()
+                    with tracing.span("backend.fetch", n):
+                        return ids[:n].cpu().numpy()
+            count(n, n, True)
+            out = model_scores(params, tokens.to(dev), cfg, value_dim)
+            with tracing.span("backend.fetch", n):
+                return out.cpu().numpy()
 
+    backend.counters = counters
     return backend
 
 
@@ -615,7 +644,6 @@ def main(argv=None) -> int:
             f"bucketing: padded={s.padded} real={s.requests} "
             f"pad_overhead={s.padded / max(slot_total, 1):.2%} of "
             f"{slot_total} device-batch slots; "
-            f"jit traces per entry point: {cluster.trace_counts or 'none (no jit in the port)'}; "
             f"device dispatches per entry point: "
             f"{cluster.dispatch_counts or '(host engine: none)'}"
         )

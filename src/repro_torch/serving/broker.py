@@ -33,8 +33,10 @@ freshness clock, the spec and the live allocation in the reference's
 format (``repro_torch.train.checkpoint``), so either package restores the
 other's checkpoints.
 
-There is no jit: ``trace_counts`` stays empty.  ``warmup`` builds the
-kernels and makes one warm launch of every serving entry per bucket shape.
+``warmup`` builds the kernels and makes one warm launch of every serving
+entry per bucket shape.  With :mod:`.tracing` on, a batch records the
+spans ``broker.serve``, ``broker.route``, ``broker.stage``,
+``broker.launch``, ``broker.fetch`` and ``broker.miss``.
 The resilience counters stay 0 on a broker: the sharded cluster
 (:class:`repro_torch.serving.cluster.Cluster`) counts them cluster-side.
 """
@@ -52,6 +54,7 @@ from ..core.alloc import allocation_divergence
 from ..core.spec import CacheSpec
 from ..freshness import FreshnessRuntime, FreshnessSpec
 from ..train import checkpoint as ckpt_lib
+from . import tracing
 from .device_cache import (
     PAD_H64,
     DeviceCacheConfig,
@@ -220,8 +223,6 @@ class Broker:
         #: guards the pending-fill handoff (the plan lands exactly once);
         #: reentrant because _serve_fused calls flush() under the lock
         self._fill_lock = threading.RLock()
-        #: no jit in the port: nothing is ever traced
-        self.trace_counts: Dict[str, int] = {}
         #: calls per serving entry point (warm-up calls included)
         self.dispatch_counts: Dict[str, int] = {}
         self._warmed_shapes: set = set()
@@ -469,18 +470,36 @@ class Broker:
                 "Broker.serve called after close(); build a new broker to "
                 "keep serving"
             )
-        if topics is None:
-            topics = self.topic_of(query_ids)
-        parts = np.asarray(self.cache.parts_for(np.asarray(topics)), np.int32)
-        if h64 is None:
-            h64 = splitmix64(query_ids)
-        h_hi, h_lo = pack_hashes(h64)
-        h_hi, h_lo, parts = self._pad_to_bucket(h_hi, h_lo, parts)
-        min_ep, eps = self._freshness_arrays(parts)
-        serve = self._serve_fused if self.fused else self._serve_unfused
-        out = serve(query_ids, parts, h_hi, h_lo, min_ep, eps)
-        self._after_batch(topics)
-        return out
+        with tracing.span("broker.serve", len(query_ids)):
+            with tracing.span("broker.route", len(query_ids)):
+                if topics is None:
+                    topics = self.topic_of(query_ids)
+                parts = np.asarray(self.cache.parts_for(np.asarray(topics)), np.int32)
+                if h64 is None:
+                    h64 = splitmix64(query_ids)
+                h_hi, h_lo = pack_hashes(h64)
+                h_hi, h_lo, parts = self._pad_to_bucket(h_hi, h_lo, parts)
+                min_ep, eps = self._freshness_arrays(parts)
+                admit = self._admit(query_ids, len(h_hi)) if self.fused else None
+            if self.fused:
+                out = self._serve_fused(query_ids, parts, h_hi, h_lo, min_ep, eps, admit)
+            else:
+                out = self._serve_unfused(query_ids, parts, h_hi, h_lo, min_ep, eps)
+            self._after_batch(topics)
+            return out
+
+    def _admit(self, query_ids, bp: int) -> np.ndarray:
+        """The admission gate over a batch, its ``bp - len(query_ids)``
+        pads never admitted (the kernels also mask them)."""
+        b = len(query_ids)
+        admit = (
+            np.asarray(self.admission(query_ids), bool)
+            if self.admission is not None
+            else np.ones(b, bool)
+        )
+        if bp > b:
+            admit = np.concatenate([admit, np.zeros(bp - b, bool)])
+        return admit
 
     def _serve_unfused(
         self, query_ids, parts, h_hi, h_lo, min_ep, eps
@@ -605,21 +624,14 @@ class Broker:
             self.rebalance()
 
     def _serve_fused(
-        self, query_ids, parts, h_hi, h_lo, min_ep, eps
+        self, query_ids, parts, h_hi, h_lo, min_ep, eps, admit
     ) -> Tuple[np.ndarray, np.ndarray]:
         """One fused device call per batch; the request arrays may carry a
         bucket-padded tail of pad keys, sliced off the outputs here.
         ``min_ep``/``eps`` are the batch's freshness floors and write
-        epochs (zeros without a spec)."""
+        epochs (zeros without a spec), ``admit`` its admission flags."""
         b = len(query_ids)
         bp = len(h_hi)
-        admit = (
-            np.asarray(self.admission(query_ids), bool)
-            if self.admission is not None
-            else np.ones(b, bool)
-        )
-        if bp > b:  # pads are never admitted (the kernels also mask them)
-            admit = np.concatenate([admit, np.zeros(bp - b, bool)])
         if self.engine == "host":
             # the broker owns its state: the previous batch's words are
             # updated in place
@@ -695,6 +707,7 @@ class Broker:
     def _serve_device(self, b, bp, h_hi, h_lo, parts, admit, eps, min_ep):
         """The device engine's fused call; returns the host arrays ``(hit,
         layer, values, stale, set_idx, wrote, way)`` and the device plan."""
+        stage = tracing.begin("broker.stage", bp)
         req = self._requests(h_hi, h_lo, parts, admit, eps, min_ep)
         with self._fill_lock:
             pending = self._pending_fill
@@ -705,23 +718,27 @@ class Broker:
                 if pending is not None and len(pending[0]) > bp:
                     self.flush()  # plan larger than this bucket (rare)
                     pending = None
-                out = self._one_call_step(self.state, *self._pad_plan(pending, bp), *req)
+                step, plan = self._one_call_step, self._pad_plan(pending, bp)
             elif pending is not None and 0 < len(pending[0]) <= bp:
                 # double-buffered fill: the previous batch's value scatter
                 # lands first, then this batch's probe/commit
-                out = self._fused_fill_step(self.state, *self._pad_plan(pending, bp), *req)
+                step, plan = self._fused_fill_step, self._pad_plan(pending, bp)
             else:
                 self.flush()  # plan larger than this bucket: standalone fill
-                out = self._fused_step(self.state, *req)
+                step, plan = self._fused_step, ()
+            tracing.end(stage)
+            with tracing.span("broker.launch", bp):
+                out = step(self.state, *plan, *req)
             # consumed only once the call was issued against it
             self._pending_fill = None
             hit_t, layer_t, value_t, stale_t, self.state, plan_t = out
         # one device -> host copy for everything the host needs
-        cols = [value_t] + [
-            t.to(torch.int32)[:, None]
-            for t in (hit_t, layer_t, stale_t, *plan_t)
-        ]
-        host = torch.cat(cols, 1).cpu().numpy()
+        with tracing.span("broker.fetch", bp):
+            cols = [value_t] + [
+                t.to(torch.int32)[:, None]
+                for t in (hit_t, layer_t, stale_t, *plan_t)
+            ]
+            host = torch.cat(cols, 1).cpu().numpy()
         v = value_t.shape[1]
         values = host[:, :v].copy()  # (bp, V) writable; sliced on return
         hit = host[:b, v] != 0
@@ -814,16 +831,17 @@ class Broker:
     def _dispatch(self, miss_ids: np.ndarray) -> np.ndarray:
         """Micro-batched backend dispatch with hedging."""
         out = []
-        for lo in range(0, len(miss_ids), self.microbatch):
-            chunk = miss_ids[lo : lo + self.microbatch]
-            out.append(self._call_hedged(chunk))
+        with tracing.span("broker.miss", len(miss_ids)):
+            for lo in range(0, len(miss_ids), self.microbatch):
+                chunk = miss_ids[lo : lo + self.microbatch]
+                out.append(self._call_hedged(chunk))
         return np.concatenate(out, axis=0)
 
     def _call_hedged(self, chunk: np.ndarray) -> np.ndarray:
         self.stats.backend_calls += 1
         if self.hedge is None or len(self.backends) == 1:
             return self.backends[0](chunk)
-        fut = self._pool.submit(self.backends[0], chunk)
+        fut = self._pool.submit(tracing.bind(self.backends[0]), chunk)
         done, _ = wait([fut], timeout=self.hedge.deadline_s, return_when=FIRST_COMPLETED)
         if done:
             return fut.result()
@@ -831,7 +849,7 @@ class Broker:
         futs = [fut]
         for backup in self.backends[1 : 1 + self.hedge.max_hedges]:
             self.stats.hedged_calls += 1
-            futs.append(self._pool.submit(backup, chunk))
+            futs.append(self._pool.submit(tracing.bind(backup), chunk))
         while True:
             done, pending = wait(futs, return_when=FIRST_COMPLETED)
             for f in done:

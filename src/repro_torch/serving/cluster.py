@@ -57,8 +57,9 @@ card every shard shares ``cuda:0``.  Shard threads (``parallel``; by
 default only when the shards span several devices, where the reference
 threads every device-engine cluster) launch onto their device's current
 stream: on one device stream order serialises the shards' kernels, and
-threads only contend for the GIL.  There is no jit: ``trace_counts`` is
-empty, and ``dispatch_counts`` counts the serving entry points' calls.
+threads only contend for the GIL.  ``dispatch_counts`` counts the serving
+entry points' calls.  With :mod:`.tracing` on, ``serve`` records the span
+``cluster.serve``, the parent of its shards' ``broker.*`` spans.
 """
 from __future__ import annotations
 
@@ -75,6 +76,7 @@ import numpy as np
 
 from ..freshness import FreshnessRuntime
 from ..train import checkpoint as ckpt_lib
+from . import tracing
 from .broker import Backend, Broker, BrokerStats
 from .device_cache import STDDeviceCache, splitmix64
 from .resilience import DOWN, ShardHealth
@@ -328,33 +330,34 @@ class Cluster:
         self._check_open()
         query_ids = np.asarray(query_ids)
         b = len(query_ids)
-        topics, h64, shard = self._route(query_ids)
-        values = np.zeros((b, self.spec.value_dim), np.int32)
-        hit = np.zeros(b, bool)
-        if shard is None:
-            if b:
-                v, h = self._serve_shard(0, query_ids, topics)
-                values[:], hit[:] = v, h
-            return values, hit
-        calls = []
-        for i in range(len(self.brokers)):
-            idx = np.flatnonzero(shard == i)
-            if not len(idx):
-                continue
+        with tracing.span("cluster.serve", b):
+            topics, h64, shard = self._route(query_ids)
+            values = np.zeros((b, self.spec.value_dim), np.int32)
+            hit = np.zeros(b, bool)
+            if shard is None:
+                if b:
+                    v, h = self._serve_shard(0, query_ids, topics)
+                    values[:], hit[:] = v, h
+                return values, hit
+            calls = []
+            for i in range(len(self.brokers)):
+                idx = np.flatnonzero(shard == i)
+                if not len(idx):
+                    continue
 
-            def on_done(v, h, idx=idx):
-                values[idx] = v
-                hit[idx] = h
+                def on_done(v, h, idx=idx):
+                    values[idx] = v
+                    hit[idx] = h
 
-            calls.append(
-                _ShardCall(
-                    i, query_ids[idx],
-                    None if topics is None else topics[idx],
-                    h64[idx], on_done,
+                calls.append(
+                    _ShardCall(
+                        i, query_ids[idx],
+                        None if topics is None else topics[idx],
+                        h64[idx], on_done,
+                    )
                 )
-            )
-        self._execute(calls)
-        return values, hit
+            self._execute(calls)
+            return values, hit
 
     # -- pipelined async dispatch ------------------------------------------
 
@@ -610,7 +613,7 @@ class Cluster:
             now_w = time.monotonic()
             for c in [c for c in pending if c.not_before <= now_w]:
                 pending.remove(c)
-                futs[self._pool.submit(self._attempt, c)] = c
+                futs[self._pool.submit(tracing.bind(self._attempt), c)] = c
             if not futs:
                 delay = min(c.not_before for c in pending) - time.monotonic()
                 if delay > 0:
@@ -1055,17 +1058,6 @@ class Cluster:
             self._merge_resilience(s, h)
             out.append(s)
         return out
-
-    @property
-    def trace_counts(self) -> dict:
-        """Jit traces summed across every shard's entry points -- the
-        compile-count regression tests pin this at O(#buckets) per shard
-        under shape-bucketed serving."""
-        agg: dict = {}
-        for b in self.brokers:
-            for k, v in b.trace_counts.items():
-                agg[k] = agg.get(k, 0) + v
-        return agg
 
     @property
     def dispatch_counts(self) -> dict:

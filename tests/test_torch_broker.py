@@ -141,7 +141,7 @@ def test_fully_hit_batch_is_one_dispatch_and_warmup_touches_nothing():
     assert tb.warmup() == []  # idempotent
     after = T.state_to_numpy(tb.state)
     assert all(np.array_equal(before[k], after[k]) for k in before)
-    assert tb.trace_counts == {}
+    assert T.tracing.take() == []  # tracing off: no span
     q = np.random.default_rng(4).integers(0, 500, size=64)
     tb.serve(q)
     _, h = tb.serve(q)
@@ -151,6 +151,7 @@ def test_fully_hit_batch_is_one_dispatch_and_warmup_touches_nothing():
     assert h.all()
     delta = {k: tb.dispatch_counts[k] - counts.get(k, 0) for k in tb.dispatch_counts}
     assert {k: d for k, d in delta.items() if d} == {"one_call": 1}
+    assert T.tracing.take() == []
     tb.close()
     with pytest.raises(RuntimeError):
         tb.serve(q)
