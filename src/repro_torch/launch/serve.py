@@ -29,8 +29,10 @@ computes the whole ``(n, 8, V)`` logits with ``forward`` and keeps the last
 position; the port unembeds only the last position, as ``prefill`` does:
 the same ids, without the ``(n, 8, 256000)`` f32 logits at full width.
 On the card the CLI's back end replays CUDA graphs of that computation,
-one per power of two of rows up to ``--batch`` (:func:`lm_backend`'s
-``graph_max``), where the reference calls its ``jax.jit``.
+captured for each power of two of rows up to ``--batch`` (:func:`lm_backend`'s
+``graph_max``), where the reference calls its ``jax.jit``: a dense model's
+call of n ids replays the set of graphs that covers n rows in the least
+measured time, an MoE model's the one graph of the next power of two.
 """
 from __future__ import annotations
 
@@ -92,8 +94,9 @@ def model_scores(params: tf.ParamTree, tokens: torch.Tensor, cfg: tf.Transformer
 
 
 def _graph_rows(n: int) -> int:
-    """The rows of the captured graph a call of ``n`` ids replays: the
-    next power of two."""
+    """The next power of two of ``n``: the largest graph captured for a
+    ``graph_max`` of ``n``, and the one graph an MoE model's call of ``n``
+    ids replays."""
     return 1 << max(n - 1, 0).bit_length()
 
 
@@ -121,42 +124,105 @@ def _capture_scores(params: tf.ParamTree, cfg: tf.TransformerConfig, k: int,
     return graphs
 
 
+def _replay_costs(graphs: dict, dev: torch.device) -> dict:
+    """``{rows: seconds}``: one replay of each captured graph on the host's
+    clock, from its launch to the card's end, so that the replay's fixed
+    host cost counts too."""
+    costs = {}
+    for rows, (graph, _, _) in graphs.items():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        costs[rows] = time.perf_counter() - t0
+    return costs
+
+
+def _replay_plans(cfg: tf.TransformerConfig, costs: dict, n_max: int) -> list:
+    """``plans[n]`` for ``n`` from 0 to ``n_max``: the rows of the captured
+    graphs a call of ``n`` ids replays, largest first.
+
+    A dense model scores each row's window alone, so a call's rows may be
+    split across graphs: its plan is the set of graphs (``costs``' keys,
+    each at most once, since a graph has one input and one output buffer)
+    whose rows add up to at least ``n`` in the least total ``costs``, a
+    0/1 cover found by a dynamic program over the graphs.  In an MoE model
+    a call's rows share the experts' capacity, so it replays one graph:
+    the next power of two of rows."""
+    if cfg.moe is not None:
+        return [()] + [(_graph_rows(n),) for n in range(1, n_max + 1)]
+    sizes = sorted(costs)
+    best = [0.0] + [math.inf] * n_max  # least cost of covering n rows so far
+    took = []  # took[i][n]: graph i is in the cover of n after graphs 0..i
+    for g in sizes:
+        c, t = costs[g], [False] * (n_max + 1)
+        for n in range(n_max, 0, -1):
+            v = c + best[max(n - g, 0)]
+            if v < best[n]:
+                best[n], t[n] = v, True
+        took.append(t)
+    plans = [()]
+    for n in range(1, n_max + 1):
+        plan, left = [], n
+        for g, t in zip(reversed(sizes), reversed(took)):
+            if left > 0 and t[left]:
+                plan.append(g)
+                left = max(left - g, 0)
+        plans.append(tuple(plan))
+    return plans
+
+
 def lm_backend(params: tf.ParamTree, cfg: tf.TransformerConfig, value_dim: int = 8,
                device="cuda", graph_max: int = 0) -> Callable[[np.ndarray], np.ndarray]:
     """``backend(qids) -> (n, value_dim) int32`` doc ids, as the CLI's.
 
-    With ``graph_max`` on a CUDA device, a call of 1 to ``graph_max`` ids
-    replays a CUDA graph of ``model_scores`` captured here for the next
-    power of two of rows: one launch where the eager forward issues ~150
-    small kernels, each at the host's dispatch cost.  It stands where the
-    reference jit-compiles ``model_scores``.  The rows past ``n`` are
-    zero windows.  A dense model scores each row's window alone, so they
-    change nothing; in an MoE model a call's tokens share the experts'
-    capacity (as in the reference, whose batch of windows shares it), so a
-    replay answers as the eager call on the padded rows does.  Larger
-    calls, and every call on the CPU, run eagerly.  Calls from several
-    threads take turns on the graphs.
+    With ``graph_max`` on a CUDA device, ``model_scores`` is captured here
+    as a CUDA graph for each power of two of rows up to the next of
+    ``graph_max``: a replay is one launch where the eager forward issues
+    ~150 small kernels, each at the host's dispatch cost.  It stands where
+    the reference jit-compiles ``model_scores``.  A call of 1 to
+    ``graph_max`` ids replays the graphs of its plan (``_replay_plans``)
+    back to back, its ids staged into them in slices and zero windows in
+    the last one's tail, then gathers their answers with one wait on the
+    card.  A dense model scores each row's window alone, so the zero rows
+    and the split change nothing, and its plan is the cheapest cover of
+    the call's rows by the graphs' replay times, measured here once
+    (``_replay_costs``).  In an MoE model a call's tokens share the
+    experts' capacity (as in the reference, whose batch of windows shares
+    it), so it replays the one graph of the next power of two of rows and
+    answers as the eager call on the padded rows does.  Larger calls, and
+    every call on the CPU, run eagerly.  Calls from several threads take
+    turns on the graphs.
 
     ``backend.counters`` counts, always: ``calls``; ``rows``, the ids asked
-    for; ``graph_rows``, the rows computed (a replayed graph's rows, ``n``
-    on the eager path); ``eager_calls``; ``captures``, the graphs
-    captured.  With :mod:`..serving.tracing` on, a call records the spans
-    ``backend.call``, ``backend.tokens``, ``backend.stage``,
-    ``backend.replay`` and ``backend.fetch``."""
+    for; ``graph_rows``, the rows computed (the sum of the replayed
+    graphs' rows, ``n`` on the eager path); ``eager_calls``; ``replays``,
+    the graphs replayed; ``split_calls``, the calls that replayed more
+    than one; ``captures``, the graphs captured.  With
+    :mod:`..serving.tracing` on, a call records the spans ``backend.call``,
+    ``backend.tokens``, ``backend.stage``, a ``backend.replay`` for each
+    graph and ``backend.fetch``.  ``backend.plans[n]`` holds the rows of
+    the graphs a call of ``n`` ids replays (none without graphs)."""
     dev = resolve_device(device)
     graphs = (_capture_scores(params, cfg, value_dim, dev, graph_max)
               if graph_max > 0 and dev.type == "cuda" else {})
+    plans = []
+    if graphs:
+        costs = _replay_costs(graphs, dev) if cfg.moe is None else {}
+        plans = _replay_plans(cfg, costs, graph_max)
     lock = threading.Lock()
-    counters = {"calls": 0, "rows": 0, "graph_rows": 0, "eager_calls": 0,
-                "captures": len(graphs)}
+    counters = {"calls": 0, "rows": 0, "graph_rows": 0, "eager_calls": 0, "replays": 0,
+                "split_calls": 0, "captures": len(graphs)}
     tally = threading.Lock()
 
-    def count(n: int, rows: int, eager: bool) -> None:
+    def count(n: int, rows: int, replays: int) -> None:
         with tally:
             counters["calls"] += 1
             counters["rows"] += n
             counters["graph_rows"] += rows
-            counters["eager_calls"] += eager
+            counters["eager_calls"] += replays == 0
+            counters["replays"] += replays
+            counters["split_calls"] += replays > 1
 
     def backend(qids: np.ndarray) -> np.ndarray:
         with tracing.span("backend.call", len(qids)):
@@ -164,23 +230,31 @@ def lm_backend(params: tf.ParamTree, cfg: tf.TransformerConfig, value_dim: int =
                 tokens = torch.from_numpy(query_tokens(qids, cfg.vocab_size))
             n = len(tokens)
             if 0 < n <= graph_max and graphs:
-                rows = _graph_rows(n)
-                graph, inp, ids = graphs[rows]
-                count(n, rows, False)
+                plan = plans[n]
+                count(n, sum(plan), len(plan))
+                parts, lo = [], 0
                 with lock:
                     with tracing.span("backend.stage", n):
-                        inp[:n].copy_(tokens)
-                        inp[n:].zero_()
-                    with tracing.span("backend.replay", rows):
-                        graph.replay()
+                        for rows in plan:
+                            _, inp, ids = graphs[rows]
+                            m = min(rows, n - lo)
+                            inp[:m].copy_(tokens[lo:lo + m])
+                            inp[m:].zero_()
+                            parts.append(ids[:m])
+                            lo += m
+                    for rows in plan:
+                        with tracing.span("backend.replay", rows):
+                            graphs[rows][0].replay()
                     with tracing.span("backend.fetch", n):
-                        return ids[:n].cpu().numpy()
-            count(n, n, True)
+                        out = parts[0] if len(parts) == 1 else torch.cat(parts)
+                        return out.cpu().numpy()
+            count(n, n, 0)
             out = model_scores(params, tokens.to(dev), cfg, value_dim)
             with tracing.span("backend.fetch", n):
                 return out.cpu().numpy()
 
     backend.counters = counters
+    backend.plans = plans
     return backend
 
 

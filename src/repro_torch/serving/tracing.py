@@ -28,9 +28,10 @@ The spans (each in the module named):
   ids;
 - ``backend.call`` (``launch/serve.py::lm_backend``): one back-end call, n
   rows asked for; inside it ``backend.tokens`` (the token windows),
-  ``backend.stage`` (the copy into a graph's input), ``backend.replay``
-  (a CUDA graph's launch, host side; n the graph's rows) and
-  ``backend.fetch`` (the ids copied back: the wait on the device).
+  ``backend.stage`` (the copies into the inputs of the call's graphs),
+  a ``backend.replay`` for each graph (its launch, host side; n the
+  graph's rows) and ``backend.fetch`` (the ids gathered and copied back:
+  the wait on the device).
 
 No span goes to ``torch.profiler`` or NVTX: the profiler would count
 their ranges among the device's activity.

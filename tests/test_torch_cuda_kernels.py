@@ -1205,31 +1205,50 @@ def test_four_shard_cluster_on_the_card_equals_the_host_engine_cluster(cuda):
     host.close()
 
 
-def test_graphed_lm_backend_equals_the_eager_one(cuda):
+def test_graphed_lm_backend_equals_the_eager_one(cuda, monkeypatch):
     """The serving CLI's LM back end with its CUDA graphs (``graph_max``)
     against the eager one on gemma-2b's smoke config: the same doc ids at
-    every size up to ``graph_max`` (rows padded to a power of two), past
-    it (eager), and from four threads at once."""
+    every size up to ``graph_max`` (rows padded to a power of two, or a
+    call split across the graphs of its plan), past it (eager), and from
+    four threads at once.  Once on the plans of the card's measured replay
+    times, once on the plans of a compute-bound model's times, which split
+    each size past 1024 that is not a power of two."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
     from repro_torch.launch.serve import lm_backend
     from repro_torch.models import transformer as tf
 
     cfg = get_arch("gemma-2b").smoke_config
     params = tf.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
     eager = lm_backend(params, cfg, 8, device=cuda)
-    graphed = lm_backend(params, cfg, 8, device=cuda, graph_max=4096)
+    measured = lm_backend(params, cfg, 8, device=cuda, graph_max=4096)
+    monkeypatch.setattr(serve, "_replay_costs", lambda graphs, dev: {g: 6.0 + 0.3 * g
+                                                                     for g in graphs})
+    split = lm_backend(params, cfg, 8, device=cuda, graph_max=4096)
+    assert split.plans[1030] == (1024, 8) and split.plans[3000] == (2048, 512, 256, 128, 64)
     qids = np.random.default_rng(8).integers(0, 68_600_000, 5000)
-    for n in (1, 2, 3, 100, 1000, 2049, 4095, 4096, 5000):
-        want = eager(qids[:n])
-        assert want.shape == (n, 8) and want.dtype == np.int32
-        assert np.array_equal(graphed(qids[:n]), want)
+    sizes = (1, 2, 3, 100, 1000, 1025, 1030, 1500, 2049, 3000, 4095, 4096, 5000)
     chunks = [qids[lo : lo + 700 + 37 * lo % 300] for lo in range(0, 4000, 500)]
-    with ThreadPoolExecutor(4) as pool:
-        got = list(pool.map(graphed, chunks))
-    for c, g in zip(chunks, got):
-        assert np.array_equal(g, eager(c))
+    chunks += [qids[lo : lo + n] for lo, n in ((0, 1025), (100, 1030), (900, 1500), (2000, 3000))]
+    for graphed in (measured, split):
+        for n in sizes:
+            want = eager(qids[:n])
+            assert want.shape == (n, 8) and want.dtype == np.int32
+            assert np.array_equal(graphed(qids[:n]), want)
+        with ThreadPoolExecutor(4) as pool:
+            got = list(pool.map(graphed, chunks))
+        for c, g in zip(chunks, got):
+            assert np.array_equal(g, eager(c))
+    lens = [n for n in sizes if n <= 4096] + [len(c) for c in chunks]
+    for graphed in (measured, split):
+        c = graphed.counters
+        assert c["replays"] == sum(len(graphed.plans[n]) for n in lens)
+        assert c["split_calls"] == sum(len(graphed.plans[n]) > 1 for n in lens)
+        assert c["graph_rows"] == sum(sum(graphed.plans[n]) for n in lens) + 5000
+        assert c["eager_calls"] == 1
+    assert split.counters["split_calls"] >= 5  # 1025, 1030, 1500, 2049, 3000
 
 
 @pytest.fixture(scope="module")

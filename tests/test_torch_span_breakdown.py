@@ -27,7 +27,8 @@ CONFIG = {"source": "test", "reduced": [], "model": MODEL,
           "cache": {"strategy": "STDv_LRU", "entries": 1024, "f_s": 0.5, "f_t": 0.4, "ways": 8,
                     "value_dim": 8, "shards": 1, "routing": "hash"},
           "stream": {"scale": 0.1, "train_frac": 0.7}, "limits": {"backend_gap": 0.1}}
-METRICS = ("broker_host_ms", "broker_wait_ms", "backend_host_ms", "backend_pad_share")
+METRICS = ("broker_host_ms", "broker_wait_ms", "backend_host_ms", "backend_pad_share",
+           "backend_split_share")
 #: the benchmark's top-level modules, imported from the copy and dropped after
 BENCH_MODULES = ("harness", "readers", "arith", "refcache", "refmodel", "stream", "weights",
                  "trace")
@@ -81,7 +82,7 @@ def test_windows_off_and_on(root, cell):
             len(rows), sum(rows), sum(rows), len(rows))  # the CPU runs eagerly
     assert not set(METRICS) & set(off)
     assert set(METRICS) <= set(on)
-    assert on["backend_pad_share"] == 0.0
+    assert on["backend_pad_share"] == on["backend_split_share"] == 0.0
     assert abs(on["broker_host_ms"] + on["broker_wait_ms"] - on["broker_ms"]) <= 0.3
     assert on["broker_wait_ms"] > 0 and on["backend_host_ms"] > 0
     assert on["span_ms"]["cluster.serve"] >= on["span_ms"]["broker.serve"]
@@ -94,14 +95,26 @@ def test_span_metrics_arithmetic():
              ("backend.call", 4 * ms, 8 * ms, 3, 0, 3), ("backend.fetch", 6 * ms, 7 * ms, 4, 0, 3),
              ("cluster.serve", 20 * ms, 22 * ms, -1, 1, 2),
              ("broker.fetch", 20 * ms, 21 * ms, 6, 1, 2)]
-    c0 = {"rows": 10, "graph_rows": 12}
-    c1 = {"rows": 55, "graph_rows": 76}
+    c0 = {"calls": 2, "rows": 10, "graph_rows": 12, "split_calls": 1}
+    c1 = {"calls": 6, "rows": 55, "graph_rows": 76, "split_calls": 2}
     got = span_breakdown.span_metrics(spans, c0, c1)
     assert got["broker_host_ms"] == pytest.approx(np.mean([10 - 1 - 4, 2 - 1]))
     assert got["broker_wait_ms"] == pytest.approx(1.0)
     assert got["backend_host_ms"] == pytest.approx(3.0)
     assert got["backend_pad_share"] == pytest.approx(100 * 19 / 64)
+    assert got["backend_split_share"] == pytest.approx(100 * 1 / 4)
     assert got["span_ms"]["broker.fetch"] == pytest.approx(1.0)
+
+
+def test_split_share_only_where_the_back_end_counts_split_calls():
+    """A program whose back end counts no ``split_calls`` (an older tree's)
+    gets its pad share and no split share."""
+    c0 = {"calls": 3, "rows": 10, "graph_rows": 16}
+    c1 = {"calls": 5, "rows": 40, "graph_rows": 64}
+    got = span_breakdown.span_metrics([], c0, c1)
+    assert got == {"backend_pad_share": pytest.approx(100 * 18 / 48)}
+    got = span_breakdown.span_metrics([], {**c0, "split_calls": 0}, {**c1, "split_calls": 2})
+    assert got["backend_split_share"] == pytest.approx(100.0)
 
 
 def test_idle_by_span_names_each_gap_by_its_innermost_span():

@@ -193,29 +193,45 @@ def test_bind_carries_the_parent_into_a_thread(traced):
 def test_lm_backend_counters_on_the_eager_path(params):
     backend = tserve.lm_backend(params, MCFG, value_dim=8, device="cpu", graph_max=64)
     assert backend.counters == {"calls": 0, "rows": 0, "graph_rows": 0, "eager_calls": 0,
-                                "captures": 0}
+                                "replays": 0, "split_calls": 0, "captures": 0}
     for n in (45, 1, 64, 70):
         backend(np.arange(n))
     c = backend.counters
     assert c["rows"] == c["graph_rows"] == 180
     assert c["calls"] == c["eager_calls"] == 4 and c["captures"] == 0
+    assert c["replays"] == c["split_calls"] == 0 and backend.plans == []
 
 
 @pytest.mark.cuda
-def test_lm_backend_counts_the_graph_rows(traced):
+@pytest.mark.parametrize("arch", ["gemma-2b", "arctic-480b"])
+def test_lm_backend_counts_the_graph_rows(traced, arch):
+    """A call of 45 ids replays its plan: the dense model's cheapest cover
+    by the measured replay times, the MoE model's one graph of 64 rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: graphs are captured only there")
     dev = torch.device("cuda")
-    params = ttf.init_params(torch.Generator(device=dev).manual_seed(0), MCFG)
-    backend = tserve.lm_backend(params, MCFG, value_dim=8, device=dev, graph_max=64)
+    cfg = treg.get_arch(arch).smoke_config
+    params = ttf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    backend = tserve.lm_backend(params, cfg, value_dim=8, device=dev, graph_max=64)
     tracing.take()
-    eager = tserve.lm_backend(params, MCFG, value_dim=8, device=dev)
+    eager = tserve.lm_backend(params, cfg, value_dim=8, device=dev)
     qids = np.arange(45)
-    assert np.array_equal(backend(qids), eager(qids))
+    got = backend(qids)
+    plan = backend.plans[45]
+    if cfg.moe is not None:
+        assert plan == (64,)
+        # the padded rows share the experts' capacity: eager on the same 64 rows
+        tokens = torch.zeros((64, tserve.QUERY_TOKENS), dtype=torch.int64, device=dev)
+        tokens[:45] = torch.from_numpy(tserve.query_tokens(qids, cfg.vocab_size))
+        want = tserve.model_scores(params, tokens, cfg, 8)[:45].cpu().numpy()
+    else:
+        want = eager(qids)
+    assert np.array_equal(got, want)
     c = backend.counters
-    assert (c["calls"], c["rows"], c["graph_rows"], c["eager_calls"]) == (1, 45, 64, 0)
+    assert (c["calls"], c["rows"], c["graph_rows"], c["eager_calls"]) == (1, 45, sum(plan), 0)
+    assert (c["replays"], c["split_calls"]) == (len(plan), int(len(plan) > 1))
     assert c["captures"] == 7  # 1, 2, ..., 64 rows
     spans = tracing.take()
     assert [(s[0], s[5]) for s in spans if s[3] == 0] == [
-        ("backend.tokens", 45), ("backend.stage", 45), ("backend.replay", 64),
-        ("backend.fetch", 45)]
+        ("backend.tokens", 45), ("backend.stage", 45),
+        *[("backend.replay", rows) for rows in plan], ("backend.fetch", 45)]

@@ -20,6 +20,9 @@ as the benchmark reads them, the back end's counters, and with tracing on
   outside ``backend.fetch``;
 - ``backend_pad_share``: 100 x (graph rows - rows) / graph rows, from the
   back end's counters over the window;
+- ``backend_split_share``: 100 x split calls / calls, the share of the
+  window's back-end calls covered by more than one graph (from the same
+  counters, where the back end counts ``split_calls``);
 - ``span_ms``: mean ms per serve call in each span name.
 
 A ``trace`` window adds the device's idle share, its longest idle gaps
@@ -125,6 +128,10 @@ def span_metrics(spans, counters0, counters1) -> dict:
     graph = counters1["graph_rows"] - counters0["graph_rows"]
     if graph:
         out["backend_pad_share"] = 100.0 * (graph - rows) / graph
+    calls = counters1.get("calls", 0) - counters0.get("calls", 0)
+    if calls and "split_calls" in counters1:
+        out["backend_split_share"] = 100.0 * (counters1["split_calls"]
+                                              - counters0["split_calls"]) / calls
     by_call = {}
     for s in spans:
         by_call.setdefault(s[4], []).append(s)
