@@ -3,8 +3,12 @@
 A cell names a configuration (``configs/<config>.json``: the back-end
 model, the cache deployment, the stream) and a traffic mix
 (``traffic/<mix>.json``); every metric named in ``BENCHMARK.json`` is read
-by ``metrics/<name>.py``.  The harness finds them all by name, so a new
-configuration, mix or metric is a new file.
+by ``metrics/<name>.py``.  What depends on the model's block (``FAMILY``)
+comes from ``families/<name>.py`` for a configuration that says
+``"family": "<name>"``, and from ``families/default.py`` (a GQA decoder
+with a SwiGLU FFN or a softmax-routed expert layer) for one that names
+none.  The harness finds them all by name, so a new configuration, mix,
+metric or model family is a new file.
 
 The timed path is the serving CLI's at full width: a ``Cluster`` compiled
 from a ``ServingSpec`` with the LM back end (``lm_backend``, CUDA graphs up
@@ -30,7 +34,7 @@ import torch
 import arith
 import weights as weights_mod
 from refcache import Plan, Replay, split_sizes
-from refmodel import Reference, row_gaps, top_ids
+from refmodel import row_gaps, top_ids
 from stream import StreamConfig, arrival_times, draw_stream, query_tokens
 
 #: top-level modules that must not be loaded in a run
@@ -80,14 +84,20 @@ def metrics_for(bench: dict, cell: dict, trace: bool) -> List[dict]:
             if (cell["name"] in m["workloads"] if "workloads" in m else m["moves"] in names)]
 
 
-def reader(name: str):
+def _load(path: Path, module: str):
+    """The file at ``path`` as module ``module``, loaded by path, so that it
+    takes no top-level name of its own."""
     import importlib.util
 
-    path = Path(__file__).resolve().parent / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name}", path)
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str):
+    return _load(Path(__file__).resolve().parent / "metrics" / f"{name}.py",
+                 f"portbench_metric_{name}").read
 
 
 def transformer_config(tf, m: dict):
@@ -101,6 +111,34 @@ def transformer_config(tf, m: dict):
         n_kv_heads=m["n_kv_heads"], head_dim=m["head_dim"], d_ff=m["d_ff"],
         vocab_size=m["vocab_size"], activation="silu", rope_theta=m["rope_theta"],
         qkv_bias=m["qkv_bias"], norm_eps=m["norm_eps"], moe=moe, dtype=torch.bfloat16)
+
+
+#: what a model family gives, each a function of the configuration's
+#: ``model`` dict ``m``:
+#:   ``program_config(tf, m)``: the port's ``TransformerConfig`` (``tf`` is
+#:     ``repro_torch.models.transformer``);
+#:   ``layout(m)``: ``(name, shape, std, dtype)`` of every weight, in the
+#:     order ``weights.make`` draws them;
+#:   ``Reference(m, w, mode)``: the plain reference on the weights ``w``,
+#:     ``mode`` "bf16" or "fp8" (the control), with ``.last_logits(tokens)``;
+#:   ``row_flops(m)``: the model FLOPs of one missed query (``mfu.*``).
+FAMILY = ("program_config", "layout", "Reference", "row_flops")
+
+
+def family(cfg: dict):
+    """The model family of configuration ``cfg``: ``families/<name>.py``
+    for ``"family": "<name>"``, ``families/default.py`` where it names
+    none, loaded by path."""
+    name = cfg.get("family", "default")
+    path = Path(__file__).resolve().parent / "families" / f"{name}.py"
+    if not path.is_file():
+        raise Fail(f"no model family {name!r} (families/{name}.py)")
+    mod = _load(path, f"portbench_family_{name}")
+    missing = [k for k in FAMILY if not callable(getattr(mod, k, None))]
+    if missing:
+        raise Fail(f"families/{name}.py gives no {', '.join(missing)}")
+    mod.name = name
+    return mod
 
 
 class Recorder:
@@ -213,20 +251,29 @@ def setup(root: Path, name: str, seed: int, t_start: float, device: str = "cuda"
         shards=c["shards"], routing=c["routing"], microbatch=batch, value_dim=c["value_dim"],
         ways=c["ways"], hedge=HedgeSpec(deadline_s=2.0))
     log(t_start, "training statistics")
-    w = weights_mod.make(m, seed, dev)
-    log(t_start, "weights")
+    fam = family(cfg)
+    w = weights_mod.make(m, seed, dev, fam.layout)
+    log(t_start, f"weights ({fam.name} family)")
     params = tf.ParamTree(weights_mod.tree(w))
-    mcfg = transformer_config(tf, m)
+    mcfg = fam.program_config(tf, m)
+    # the card pads an expert model's call to one graph of the next power
+    # of two of rows, and a row's answer depends on its call's rows
+    whole_calls = mcfg.moe is not None
     spans: List[tuple] = []
     rec = Recorder(lm_backend(params, mcfg, c["value_dim"], device=dev, graph_max=batch), spans)
     cluster = Cluster.from_spec(spec, stats, [rec], topic_of=lambda q: true_topic[q],
                                 value_fn=rec.static_fill(batch), device=dev)
-    log(t_start, f"graphs captured, static layer filled ({len(rec.calls)} back-end calls)")
+    plans = rec.backend.plans
+    log(t_start, f"graphs captured, static layer filled ({len(rec.calls)} back-end calls); "
+                 "graph rows a call of n misses replays: "
+                 + ", ".join(f"{n}: {list(plans[n])}" for n in (16, 48, 100, 300, 1000, 1030)
+                             if n < len(plans)))
     cluster.warmup()
     log(t_start, "bucket shapes warmed")
 
     st = SimpleNamespace(
-        bench=bench, cell=cell, cfg=cfg, mix=mix, dev=dev, seed=seed, keys=keys,
+        bench=bench, cell=cell, cfg=cfg, mix=mix, dev=dev, seed=seed, family=fam,
+        whole_calls=whole_calls, keys=keys,
         n_train=n_train, true_topic=true_topic, test=test, batch=batch, w=w, params=params,
         rec=rec, cluster=cluster, spans=spans, pos=0, min_bucket=BucketSpec().min_size,
         calls=[],  # every serve call: lo, hi, t0, t1, phase
@@ -322,6 +369,11 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool, t_st
     log(t_start, f"window closed: {len(window)} serve calls, {sum(x.n for x in window)} requests, "
                  f"hit rate {d_hit / max(d_req, 1):.4f}, {after.backend_calls - before.backend_calls}"
                  f" back-end calls, peak {peak / 2**30:.2f} GiB")
+    if window:
+        ms = np.array([x.t1 - x.t0 for x in window]) * 1e3
+        ns = np.array([x.n for x in window])
+        log(t_start, f"serve calls: requests median {np.median(ns):.0f}, max {ns.max()}; ms median "
+                     f"{np.median(ms):.2f}, p99 {np.percentile(ms, 99):.2f}, max {ms.max():.2f}")
     # -- the program's state is freed before the checks --------------------------
     cluster.close()
     del cluster, broker
@@ -334,7 +386,8 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool, t_st
         cell=cell, cfg=cfg, mix=mix, seed=seed, seconds=seconds, t0=t0, t_end=t_end,
         setup_s=setup_s, spans=spans, window=window, due=due, n_due=n_due, w_lo=w_lo,
         backend_calls=[b for b in rec.calls if b.serve >= first], before=before, after=after,
-        trace=dtrace, row_flops=arith.row_flops(m), model=m, window_prev=calls[first - 1],
+        trace=dtrace, family=st.family, whole_calls=st.whole_calls,
+        row_flops=st.family.row_flops(m), model=m, window_prev=calls[first - 1],
         min_bucket=st.min_bucket)
     checks = check(run, cfg, test, st.true_topic, st.keys[:st.n_train], calls, st.served_vals,
                    st.served_hit, rec.calls, state, st.w, dev, seed, control)
@@ -441,9 +494,9 @@ def check(run, cfg, test, true_topic, train_keys, calls, served_vals, served_hit
         bad += int((val != r_val).any(axis=-1).sum())
     out["cache_mismatches"] = (float(bad), 0.0)
 
-    # the back end: a sample of the window's calls against the reference;
-    # the control's ids are judged in the served ids' place
-    fp8 = (Reference(m, w, "fp8").last_logits,) if control else ()
+    # the back end: a sample of the window's calls against the family's
+    # reference; the control's ids are judged in the served ids' place
+    fp8 = (run.family.Reference(m, w, "fp8").last_logits,) if control else ()
     gaps, stood_in = backend_gap(run, m, w, dev, seed, c["value_dim"], fp8)
     judged = stood_in[0] if control else gaps
     for name, limit in lim.items():
@@ -470,15 +523,17 @@ def backend_gap(run, m, w, dev, seed, k, stand_ins=()):
     """Each sampled row's widest logit gap of the served ids, and of the ids
     that each of ``stand_ins`` (tokens -> last logits, such as the fp8
     reference) puts first on the same rows: ``(gaps, [gaps of each])``.
-    The sample is drawn from the seed: rows of the window's back-end calls
-    (a dense model scores each row alone), or whole calls (an expert
-    layer's drops depend on the whole call, its padding rows included)."""
+    The reference is ``run.family``'s.  The sample is drawn from the seed:
+    rows of the window's back-end calls (a dense model scores each row
+    alone), or whole calls where ``run.whole_calls`` (the program's config
+    has an expert layer, whose drops depend on the whole call), its padding
+    rows included."""
     calls = run.backend_calls
     if not calls:
         return np.zeros(0), [np.zeros(0) for _ in stand_ins]
     rng = np.random.default_rng([seed, 7])
     samp = run.mix.get("check", {})
-    ref = Reference(m, w, "bf16")
+    ref = run.family.Reference(m, w, "bf16")
     gaps, sgaps = [], [[] for _ in stand_ins]
 
     def judge(t, n, served):
@@ -487,7 +542,7 @@ def backend_gap(run, m, w, dev, seed, k, stand_ins=()):
         for fn, out in zip(stand_ins, sgaps):
             out.append(row_gaps(lg, top_ids(fn(t)[:n], k)))
 
-    if m.get("n_experts"):
+    if run.whole_calls:
         batch = int(run.mix["batch"])
         for ci in rng.choice(len(calls), size=min(samp.get("calls", 2), len(calls)), replace=False):
             b = calls[int(ci)]

@@ -4,10 +4,11 @@ many seeds (its sound runs' largest) and for the fp8 control on the same
 rows (its smallest).  One process, each seed in turn: the seed's weights,
 the CLI's back end with its CUDA graphs, calls of the sizes a window makes
 over distinct query ids of the seed's stream, the reference and the
-control over the same rows.  For an expert model it also reads a planted
-fault, the reference with one expert's output projection negated in every
-layer put in the program's place, and how close to a tie the routing of
-the rows the program answers off lies.
+control over the same rows, each through the configuration's model family
+(``harness.family``).  For the default family's expert model it also
+reads a planted fault, the reference with one expert's output projection
+negated in every layer put in the program's place, and how close to a tie
+the routing of the rows the program answers off lies.
 
     python3 portbench/readings.py --workload glm4-9b.bulk --seeds 1,2,3 --rows 1000
 
@@ -99,12 +100,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     m, c = cfg["model"], cfg["cache"]
+    fam = harness.family(cfg)
+    mcfg = fam.program_config(tf, m)
+    # an expert layer's rows are judged in whole calls, as the harness judges
+    # them; the planted fault and the margin look read the default family's
+    # expert weights and its reference's routing margins
+    whole_calls = mcfg.moe is not None
+    expert_look = fam.name == "default" and whole_calls
     batch = int(mix["batch"])
     res = []
     for seed in [int(s) for s in args.seeds.split(",")]:
         keys, _ = draw_stream(StreamConfig.scaled(0.1, seed))
-        w = weights_mod.make(m, seed, dev)
-        backend = lm_backend(tf.ParamTree(weights_mod.tree(w)), harness.transformer_config(tf, m),
+        w = weights_mod.make(m, seed, dev, fam.layout)
+        backend = lm_backend(tf.ParamTree(weights_mod.tree(w)), mcfg,
                              c["value_dim"], device=dev,
                              graph_max=min(batch, 1 << (args.rows - 1).bit_length()))
         ids = np.unique(keys)
@@ -116,9 +124,9 @@ def main() -> int:
         del backend
         gc.collect()
         torch.cuda.empty_cache()
-        run = SimpleNamespace(backend_calls=calls, mix=mix)
-        stand_ins = {"control": Reference(m, w, "fp8").last_logits}
-        if m.get("n_experts"):
+        run = SimpleNamespace(backend_calls=calls, mix=mix, family=fam, whole_calls=whole_calls)
+        stand_ins = {"control": fam.Reference(m, w, "fp8").last_logits}
+        if expert_look:
             stand_ins["one_expert"] = one_expert_negated(m, w)
         gaps, others = harness.backend_gap(run, m, w, dev, seed, c["value_dim"],
                                            tuple(stand_ins.values()))
@@ -126,7 +134,7 @@ def main() -> int:
         for who, g in zip(["program", *stand_ins], [gaps, *others]):
             line[who] = {name: harness.gap_stat(name, g) for name in STATS}
             line[who].update(p50=float(np.median(g)), p99=float(np.percentile(g, 99)))
-        if m.get("n_experts"):
+        if expert_look:
             line["margins"] = margin_look(run, m, w, dev, seed, gaps)
         res.append(line)
         print(json.dumps(line), flush=True)

@@ -1,6 +1,6 @@
 """The benchmark on the card at the smoke widths: a traced run of each
 kind of cell, correct, with the device's fields and every per-layer
-metric it can read."""
+metric it can read; and a cell of a model family of the tests' own."""
 import json
 
 import pytest
@@ -30,3 +30,19 @@ def test_traced_run_on_the_card(root, cell):
     assert dev["platform"] == "gpu" and dev["count"] == 1 and dev["memory_peak_bytes"] > 0
     assert 0 < dev["busy_s"] <= dev["window_s"] * 1.01
     assert out["metrics"] and len(out["breakdown"]["device_ops"]) <= 10
+
+
+@pytest.mark.cuda
+def test_a_new_family_on_the_card(root):
+    """The tests' GeGLU family through the card's graphed back end: correct,
+    and its fp8 control not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the back end's graphs run only there")
+    from test_portbench_families import _add_family
+
+    cell = _add_family(root, "geglu")
+    _longer_stream(root)
+    out = run(root, cell, device="cuda")
+    assert out["correct"], out["checks"]
+    control = run(root, cell, device="cuda", control=True)
+    assert not control["correct"], control["checks"]

@@ -1,6 +1,6 @@
 """Nothing the command runs imports JAX or the JAX package (top-level names
 compared whole: the port's name begins with the JAX package's), and the
-references import nothing of the program."""
+references and the model families import nothing of the program."""
 import ast
 import json
 import subprocess
@@ -25,6 +25,15 @@ def _imports(path):
 def test_references_import_nothing_of_the_program():
     for name in REFERENCE:
         assert not _imports(HERE / name) & {"repro", "repro_torch", "jax", "jaxlib", "flax"}, name
+
+
+def test_families_import_nothing_of_the_program():
+    """A family file (and the tests' own) is part of the yardstick: its
+    reference and its counts import neither the program nor JAX."""
+    files = sorted(HERE.glob("families/*.py")) + sorted(HERE.glob("tests/families/*.py"))
+    assert files
+    for path in files:
+        assert not _imports(path) & {"repro", "repro_torch", "jax", "jaxlib", "flax"}, path
 
 
 def test_no_source_imports_jax():

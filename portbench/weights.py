@@ -1,13 +1,15 @@
 """Seeded random weights, drawn on the device in a few large calls.
 
-One flat bf16 buffer is filled from a ``torch.Generator`` seeded with the
-run's seed, a chunk of at most ``CHUNK`` values per call, and cut into the
-model's tensors, each scaled to its init's standard deviation (the
-fan-in's inverse square root; 1 for the embedding).  Norm scales and
-biases are zeros, and the router is f32, as the model initialises them.
-The names are the model's parameter tree's, flattened with dots; the
-benchmark hands the program its tree of these tensors and the reference
-the same tensors.
+One flat buffer per dtype (in the order the dtypes first appear in the
+layout) is filled from a ``torch.Generator`` seeded with the run's seed, a
+chunk of at most ``CHUNK`` values per call, and cut into the model's
+tensors, each scaled to its init's standard deviation (the fan-in's
+inverse square root; 1 for the embedding).  The layout is the model
+family's (``harness.FAMILY``); this module's ``layout`` is the default
+family's, whose norm scales and biases are zeros and whose router is f32,
+as the model initialises them.  The names are the model's parameter
+tree's, flattened with dots; the benchmark hands the program its tree of
+these tensors and the reference the same tensors.
 """
 from __future__ import annotations
 
@@ -52,12 +54,14 @@ def layout(m: dict) -> List[Tuple[str, tuple, float, torch.dtype]]:
     return out
 
 
-def make(m: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """The weights of config ``m`` from ``seed``, on ``device``."""
+def make(m: dict, seed: int, device, layout_of=layout) -> Dict[str, torch.Tensor]:
+    """The weights of config ``m`` from ``seed``, on ``device``, as
+    ``layout_of(m)`` lays them out."""
+    entries = layout_of(m)
     gen = torch.Generator(device=device).manual_seed(seed)
     out: Dict[str, torch.Tensor] = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        leaves = [(n, s, std) for n, s, std, dt in layout(m) if dt == dtype and std > 0]
+    for dtype in dict.fromkeys(dt for _, _, std, dt in entries if std > 0):
+        leaves = [(n, s, std) for n, s, std, dt in entries if dt == dtype and std > 0]
         total = sum(math.prod(s) for _, s, _ in leaves)
         flat = torch.empty(total, dtype=dtype, device=device)
         for lo in range(0, total, CHUNK):
@@ -67,7 +71,7 @@ def make(m: dict, seed: int, device) -> Dict[str, torch.Tensor]:
             n = math.prod(shape)
             out[name] = flat[at:at + n].view(shape).mul_(std)
             at += n
-    for name, shape, std, dtype in layout(m):
+    for name, shape, std, dtype in entries:
         if std == 0:
             out[name] = torch.zeros(shape, dtype=dtype, device=device)
     return out
